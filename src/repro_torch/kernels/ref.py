@@ -1,0 +1,39 @@
+"""Plain PyTorch versions of the CUDA kernels (the correctness contract).
+
+``kernels/ops.py`` sends CPU tensors here; the CUDA kernels are held
+against these on the card (``chip_smoke.py``). Both accept an optional
+leading cohort axis.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def cosine_similarity(x: torch.Tensor, c: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """x: (..., P, D), c: (..., K, D) -> (..., P, K) cosine similarities."""
+    x = x.float()
+    c = c.float()
+    dots = x @ c.transpose(-1, -2)
+    xn = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    cn = torch.linalg.vector_norm(c, dim=-1, keepdim=True)
+    return dots / torch.clamp(xn * cn.transpose(-1, -2), min=eps)
+
+
+def segment_aggregate(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """data: (..., P, D); ids: (..., P) -> (..., K, D) weighted segment sums.
+
+    Ids outside [0, K) match no one-hot column and contribute nothing.
+    """
+    d = data.float()
+    if weights is not None:
+        d = d * weights.float()[..., None]
+    kk = torch.arange(num_segments, device=d.device)
+    onehot = (segment_ids.long()[..., None] == kk).to(d.dtype)  # (..., P, K)
+    return onehot.transpose(-1, -2) @ d
