@@ -12,13 +12,30 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
   4. the main path: ``run_auxo`` on the openimage-like population with the
      paper benchmarks' settings; every kernel must have launched;
   5. determinism: a second run from the same seed is bit-identical;
-  6. timing at the main-path shapes (CUDA events, median of >= 20 runs).
-The last two lines are a JSON kernel report and the JSON result line.
+  6. timing at the main-path shapes (CUDA events, median of >= 20 runs);
+  7. paged cohort decode at granite-3-2b's full width: a 3-slot bank from
+     ``model_init``, 2 live cohorts x 4 lanes, 16 steps, a partition, 16
+     more; every decode-kernel call of the path held against the plain
+     version on the same inputs (2e-5), and a plain-backend decoder beside
+     it (same greedy tokens up to a near tie); tokens/s, peak memory and
+     the share of the weight-bytes bound per step;
+  8. the serving plane: a 2000-query burst through ``ServingPlane`` on the
+     engine of the main run, one inference per admitted batch, a repeated
+     cold batch served from the probe cache; queries/s;
+  9. timing of decode attention at the main-path call and at a long cache,
+     f32 and bf16, beside its byte bound, the plain version and
+     ``F.scaled_dot_product_attention``.
+Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
+slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
+(20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
+The last three lines are a JSON kernel report, the card's name and power
+limit, and the JSON result line.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -30,12 +47,17 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 
 # tests/test_kernels.py SHAPES (P, D, K) plus the main-path shapes
 SWEEP = [(1, 128, 2), (7, 33, 3), (128, 512, 8), (200, 300, 5), (1024, 256, 16),
          (64, 64, 64), (512, 128, 4), (64, 128, 2), (125, 6922, 7), (125, 1, 7),
          (64, 1, 2), (0, 128, 2), (33, 128, 1)]
 TOL = {"f32": (2e-5, 2e-5, 2e-5), "bf16": (2e-2, 5e-2, 5e-2)}  # cos, seg, seg-weighted
+# tests/test_decode_attention_kernel.py shapes (B, H, Hkv, hd, S, length)
+DECODE_SHAPES = [(2, 8, 2, 16, 64, 40), (1, 4, 4, 32, 128, 128), (3, 16, 2, 64, 300, 200),
+                 (2, 8, 8, 128, 1024, 1)]
+DECODE_TOL = {"f32": 2e-5, "bf16": 3e-2}
 
 
 def fail(msg: str) -> int:
@@ -106,6 +128,62 @@ def check_kernels(torch, ops, ref, cs, sa) -> float:
     return worst
 
 
+def check_decode(torch, ops, ref, da) -> float:
+    """Phase 3b: decode attention against its plain version on the card:
+    the JAX kernel tests' shapes, per-sequence lengths, length 0 and a
+    strided layer slice of a paged cache; two launches bit-identical."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def check(what, q, k, v, n, tol):
+        nonlocal worst
+        before = da.launches
+        got = ops.decode_attention(q, k, v, n)
+        again = ops.decode_attention(q, k, v, n)
+        want = ref.decode_attention(q, k, v, n)
+        torch.cuda.synchronize()
+        if da.launches != before + 2:
+            raise AssertionError(f"decode {what}: a CUDA call did not launch the kernel")
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode {what}: two launches differ")
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"decode {what}: max err {err} > {tol}")
+        worst = max(worst, err)
+
+    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tol = DECODE_TOL[dname]
+        for (B, H, Hkv, hd, S, L) in DECODE_SHAPES:
+            q, k, v = rnd(B, H, hd).to(dt), rnd(B, S, Hkv, hd).to(dt), rnd(B, S, Hkv, hd).to(dt)
+            check(f"{dname} {(B, H, Hkv, hd, S, L)}", q, k, v, L, tol)
+        q, k, v = rnd(4, 8, 32).to(dt), rnd(4, 256, 4, 32).to(dt), rnd(4, 256, 4, 32).to(dt)
+        lens = torch.tensor([1, 64, 200, 256], device="cuda")
+        check(f"{dname} per-sequence lengths", q, k, v, lens, tol)
+        check(f"{dname} length 0", q, k, v, torch.tensor([0, 0, 3, 0], device="cuda"), tol)
+        # one layer of a paged cache laid out (rows, lanes, L, S, Hkv, hd),
+        # read in place through its batch and sequence strides
+        cache_k = rnd(2, 4, 3, 256, 8, 64).to(dt)
+        cache_v = rnd(2, 4, 3, 256, 8, 64).to(dt)
+        kl = cache_k[:, :, 1].reshape(8, 256, 8, 64)
+        vl = cache_v[:, :, 1].reshape(8, 256, 8, 64)
+        if kl.is_contiguous() or kl.data_ptr() != cache_k[:, :, 1].data_ptr():
+            raise AssertionError("the layer slice should be a strided view")
+        lens = torch.randint(1, 257, (8,), generator=g, device="cuda")
+        check(f"{dname} strided layer slice", rnd(8, 32, 64).to(dt), kl, vl, lens, tol)
+    # a CUDA tensor never falls back: inputs the kernel does not take raise
+    q, k = rnd(2, 8, 48), rnd(2, 16, 2, 48)
+    n = torch.ones(2, dtype=torch.int32, device="cuda")
+    for bad in (lambda: da.decode_attention(q.double(), k.double(), k.double(), n),
+                lambda: da.decode_attention(q, k, k, n)):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("the decode wrapper accepted inputs it does not take")
+    return worst
 
 
 # ------------------------------------------------------------ the main path
@@ -224,8 +302,8 @@ def eager_ms(torch, fn, inner: int = 20, reps: int = 25) -> float:
     return statistics.median(samples)
 
 
-def bound(nbytes: float, flops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -271,6 +349,231 @@ def time_segment(torch, ops, ref, sig):
         library_ms=library_ms,
         bound=bound(nbytes, flops),
     )
+
+
+def time_decode(torch, ops, ref, q, k, v, lens):
+    """One decode-attention call: kernel, plain version and one library
+    call (``scaled_dot_product_attention`` with a length mask, timed only
+    as a yardstick), beside the byte bound of the valid prefixes."""
+    B, H, hd = q.shape
+    Hkv = k.shape[2]
+    el = q.element_size()
+    n_tok = int(lens.sum())
+    nbytes = 2 * B * H * hd * el + 2 * n_tok * Hkv * hd * el + B * 4
+    flops = 4 * H * hd * n_tok
+    F = torch.nn.functional
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(k.shape[1], device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    return dict(
+        ms=graph_ms(torch, lambda: ops.decode_attention(q, k, v, lens)),
+        eager_ms=eager_ms(torch, lambda: ops.decode_attention(q, k, v, lens)),
+        plain_ms=graph_ms(torch, lambda: ref.decode_attention(q, k, v, lens)),
+        library_ms=graph_ms(torch, lib),
+        bound=bound(nbytes, flops, FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS),
+    )
+
+
+U32 = 2.0 ** -24  # float32 unit roundoff
+NOISE_FACTOR = 8  # the tolerance of the main-path check, in units of attention_noise
+
+
+def attention_noise(torch, q, k, v, length):
+    """Decode attention in float64 on the same inputs, and the float32
+    rounding it carries at these inputs, per output element. A score
+    s_t = q.k_t / sqrt(hd) sums hd products: float32 rounds it by about
+    u * sum_i |q_i k_ti| / sqrt(hd). The softmax passes that on as
+    d out / d s_t = p_t (v_t - out), and the output's own rounding adds
+    u * max|v|. Returns (exact, noise), both (B, H, hd) float64."""
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.double().reshape(B, Hkv, H // Hkv, hd)
+    k64, v64 = k.double(), v.double()
+    s = torch.einsum("bngk,bsnk->bngs", qg, k64) / math.sqrt(hd)
+    a = torch.einsum("bngk,bsnk->bngs", qg.abs(), k64.abs()) / math.sqrt(hd)
+    valid = torch.arange(S, device=q.device)[None, :] < length[:, None]
+    p = torch.softmax(s.masked_fill(~valid[:, None, None, :], -1e30), dim=-1)
+    exact = torch.einsum("bngs,bsnk->bngk", p, v64)
+    dev = (v64.permute(0, 2, 1, 3)[:, :, None] - exact[:, :, :, None]).abs()
+    vmax = v64.abs().masked_fill(~valid[:, :, None, None], 0).amax()
+    noise = U32 * (torch.einsum("bngs,bngsk->bngk", p * a, dev) + vmax)
+    return exact.reshape(B, H, hd), noise.reshape(B, H, hd)
+
+
+def checking_attend(torch, ops, ref, log: list):
+    """The main path's decode attention: the kernel's output, held against
+    the plain version on the same q, K, V and lengths at every call (every
+    layer of every step). The tolerance is the f32 one of phase 3b plus
+    NOISE_FACTOR times the float32 rounding of these inputs
+    (``attention_noise``): with random full-width weights the scores reach
+    |s| ~ 300, and two correct float32 versions that sum in another order
+    then differ by ~1e-4. Each call logs its max |err| against the plain
+    version and the kernel's and the plain version's against float64."""
+    tol = DECODE_TOL["f32"]
+
+    def attend(q, k, v, length):
+        got = ops.decode_attention(q, k, v, length)
+        want = ref.decode_attention(q, k, v, length)
+        exact, noise = attention_noise(torch, q, k, v, length)
+        diff = (got - want).abs().double()
+        share = diff / (tol + tol * want.abs() + NOISE_FACTOR * noise)
+        err = diff.max().item()
+        if (share > 1).any():
+            raise AssertionError(f"decode attention call {len(log)} of the main path: kernel vs "
+                                 f"plain max err {err}, beyond the tolerance at "
+                                 f"{int((share > 1).sum())} elements")
+        log.append((err, (got.double() - exact).abs().max().item(),
+                    (want.double() - exact).abs().max().item(), share.max().item()))
+        return got
+
+    return attend
+
+
+GRANITE = "granite-3-2b"
+DECODE_LANES, DECODE_PAGE, DECODE_STEPS = 4, 128, 16
+
+
+def decode_phase(torch, np, ops, ref, profile: bool = False):
+    """Phase 7: paged cohort decode at granite-3-2b's full width. The kernel
+    decoder's every attention call is checked against the plain version
+    (``checking_attend``); a plain-backend decoder runs beside it, fed the
+    plain decoder's greedy tokens at every step (teacher-forced, so the two
+    never part), and the token streams and logits are compared. With
+    ``profile``, a torch.profiler window over one 4-step decode call."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import build_model
+    from repro_torch.serve import CohortDecoder
+
+    model = build_model(get_config(GRANITE))
+    cfg = model.cfg
+    n_params = model.param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bank = model.init_bank(rnd.key(0), 3, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    bank_gb = torch.cuda.memory_allocated() / 1e9
+    live = [0, 1]
+    calls = []
+    dk, dr = (CohortDecoder(model, lambda: bank, lambda: list(live), lanes=DECODE_LANES,
+                            page_size=DECODE_PAGE, backend=b, device="cuda")
+              for b in (checking_attend(torch, ops, ref, calls), "ref"))
+    logit_errs, max_err, tie_steps, step = [], 0.0, [], 0
+    da.launches = 0
+    for phase_live in ([0, 1], [1, 2]):  # [1, 2]: slot 0 partitions away
+        live[:] = phase_live
+        for _ in range(DECODE_STEPS):
+            (tk, lk), (tr, lr) = dk.decode(1), dr.decode(1)
+            step += 1
+            if dk.cache.slots != dr.cache.slots:
+                raise AssertionError("decode: the backends hold different cohort rows")
+            logit_errs.append(float(np.abs(lk - lr).max()))
+            max_err = max(max_err, logit_errs[-1])
+            differ = tk[..., 0] != tr[..., 0]
+            if differ.any():
+                top2 = np.sort(lr, axis=-1)[..., -2:]
+                gap = (top2[..., 1] - top2[..., 0])[differ]
+                if not (gap < max_err).all():
+                    raise AssertionError(
+                        f"decode step {step}: tokens differ with a top-2 gap {gap.min()} "
+                        f"above the max logit error {max_err}")
+                tie_steps.append((step, int(differ.sum())))
+            dk.tokens = dr.tokens  # teacher-forced: both go on from the plain tokens
+    launches = da.launches
+    torch.cuda.synchronize()
+    n_steps = 2 * DECODE_STEPS
+    if launches != cfg.n_layers * n_steps or len(calls) != launches:
+        raise AssertionError(f"decode: {launches} kernel launches and {len(calls)} checked "
+                             f"calls, want {cfg.n_layers} x {n_steps}")
+    idx = dict(zip(dk.cache.slots, dk.cache.index.tolist()))
+    if 0 in idx or idx.get(1) != n_steps or idx.get(2) != DECODE_STEPS:
+        raise AssertionError(f"decode: partition scatter kept positions {idx}")
+    lens = torch.from_numpy(dk.cache.index.astype(np.int64)).repeat_interleave(DECODE_LANES)
+    del dk, dr
+    # throughput: a fresh kernel decoder; the per-step time is the
+    # difference of a 1-step and a 16-step call (the gather cancels)
+    live[:] = [0, 1]
+    dt = CohortDecoder(model, lambda: bank, lambda: list(live), lanes=DECODE_LANES,
+                       page_size=DECODE_PAGE, device="cuda")
+    walls = []
+    for n in (1, DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, logits = dt.decode(n)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not np.isfinite(logits).all() or toks.shape != (2, DECODE_LANES, DECODE_STEPS):
+        raise AssertionError("decode: non-finite logits or a wrong token shape")
+    step_ms = (walls[1] - walls[0]) / (DECODE_STEPS - 1) * 1e3
+    table = None
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dt.decode(4)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        evs = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in evs if e.device_type == DeviceType.CUDA) / 1e6
+        table = (f"{evs.table(sort_by='self_device_time_total', row_limit=15)}\n[profile] one "
+                 f"4-step decode call (params gather included): wall {wall:.4f} s under the "
+                 f"profiler, device busy {busy:.6f} s = {100 * busy / wall:.2f}% of the wall")
+    row_bytes = n_params * 4
+    bound_ms = 2 * row_bytes / HBM_BYTES_PER_S * 1e3
+    out = dict(
+        launches=launches, n_steps=n_steps, max_err=max_err, tie_steps=tie_steps,
+        logit_errs=logit_errs, call_err=[max(c[i] for c in calls) for i in range(4)],
+        init_s=t_init, bank_gb=bank_gb,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        call_tok_s=2 * DECODE_LANES * DECODE_STEPS / walls[1],
+        step_tok_s=2 * DECODE_LANES / (step_ms / 1e3), step_ms=step_ms,
+        bound_ms=bound_ms, n_params=n_params, n_layers=cfg.n_layers, lens=lens, table=table,
+    )
+    del dt, bank
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_phase(torch, np, eng):
+    """Phase 8: a burst through the serving plane on the main run's engine."""
+    from repro_torch.serve import QueryStream, ServingPlane, StreamConfig
+
+    ids = np.arange(eng.data.n_clients, dtype=np.int64)
+    hot = ids[np.asarray(eng.fp_seen[ids], bool)]
+    cold = np.setdiff1d(ids, hot)
+    if not (hot.size and cold.size and len(eng.coordinator.identity) >= 2):
+        raise AssertionError(f"serving: {hot.size} hot, {cold.size} cold clients, "
+                             f"{len(eng.coordinator.identity)} identities")
+    plane = ServingPlane(eng, max_batch=256)
+    stream = QueryStream(StreamConfig(n_queries=2000, hot_frac=0.9, seed=0), hot, cold)
+    d0 = eng.probe_train_dispatches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds, batches = plane.serve_stream(stream)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    probes = eng.probe_train_dispatches - d0
+    if plane.infer_dispatches != len(batches) or probes > len(batches):
+        raise AssertionError(f"serving: {plane.infer_dispatches} inferences and {probes} probe "
+                             f"batches for {len(batches)} admitted batches")
+    if preds.size != 2000 or preds.min() < 0 or preds.max() >= eng.data.n_classes:
+        raise AssertionError("serving: predictions out of range")
+    batch = cold[:64]
+    plane.serve_batch(batch)
+    d1 = eng.probe_train_dispatches
+    again = plane.serve_batch(batch)
+    if eng.probe_train_dispatches != d1:
+        raise AssertionError("serving: a repeated cold batch probed again")
+    if not np.array_equal(again, plane.serve_batch(batch)):
+        raise AssertionError("serving: a repeated batch changed its answers")
+    slots = plane.route_slots(ids)
+    return dict(wall=wall, qps=2000 / wall, batches=len(batches), probes=probes, hot=hot.size,
+                cold=cold.size, slots=sorted(set(slots.tolist())))
 
 
 def record(mod, name, sig, log):
@@ -336,11 +639,14 @@ def main(argv) -> int:
 
     # ---------------------------------------------------------- phase 3
     from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import segment_aggregate as sa
     worst = check_kernels(torch, ops, ref, cs, sa)
+    worst["decode_attention"] = check_decode(torch, ops, ref, da)
     print(f"[kernels] kernel vs plain max |err|: {worst} "
-          f"(tolerances f32 2e-5, bf16 2e-2 cosine / 5e-2 segment)")
+          f"(tolerances f32 2e-5, bf16 2e-2 cosine / 5e-2 segment / 3e-2 decode; "
+          f"decode bit-identical across launches)")
     result = {"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}
@@ -404,6 +710,39 @@ def main(argv) -> int:
           f"({secs2 / ROUNDS:.4f} s/round)")
     if "--profile" in argv:
         print(profile_rounds(torch, eng2, ROUNDS, 5))
+    del eng2
+
+    # ------------------------------------- phase 7: paged cohort decode
+    import numpy as np
+    dec = decode_phase(torch, np, ops, ref, "--profile" in argv)
+    ties = dec["tie_steps"]
+    print(f"[decode] {GRANITE} full width ({dec['n_params']:,} params, f32), bank of 3 slots "
+          f"({dec['bank_gb']:.2f} GB, drawn in {dec['init_s']:.2f} s), 2 live cohorts x "
+          f"{DECODE_LANES} lanes, {DECODE_STEPS} steps, partition [0, 1] -> [1, 2], "
+          f"{DECODE_STEPS} more: decode kernel launches {dec['launches']} = {dec['n_steps']} "
+          f"steps x {dec['n_layers']} layers, every one held against the plain version on the "
+          f"same inputs: max |err| {dec['call_err'][0]:.3e}, at most "
+          f"{dec['call_err'][3]:.3f} of the tolerance (2e-5 + {NOISE_FACTOR} x the float32 "
+          f"rounding of the inputs); max |err| against float64: kernel "
+          f"{dec['call_err'][1]:.3e}, plain {dec['call_err'][2]:.3e}")
+    print(f"[decode] kernel vs plain decoder, teacher-forced with the plain tokens: "
+          f"{'identical greedy tokens at every step' if not ties else 'identical greedy tokens except near ties (step, lanes) ' + str(ties)}; "
+          f"max |logit err| {dec['max_err']:.3e}, by step "
+          f"{[float(f'{e:.3g}') for e in dec['logit_errs']]}")
+    print(f"[decode] {dec['call_tok_s']:.1f} tokens/s per 16-step call (params gather included), "
+          f"{dec['step_tok_s']:.1f} tokens/s per step: {dec['step_ms']:.3f} ms/step against the "
+          f"weight-bytes bound {dec['bound_ms']:.3f} ms (2 rows x {dec['n_params'] * 4 / 1e9:.2f} GB "
+          f"at 3.35 TB/s) = {100 * dec['bound_ms'] / dec['step_ms']:.1f}% of the bound; "
+          f"peak memory {dec['peak_gb']:.2f} GB")
+    if dec["table"]:
+        print(dec["table"])
+
+    # ----------------------------------------- phase 8: serving plane
+    srv = serving_phase(torch, np, eng)
+    print(f"[serving] 2000-query burst (90% hot, max_batch 256): {srv['qps']:.1f} queries/s "
+          f"({srv['wall']:.4f} s), {srv['batches']} admitted batches = {srv['batches']} inferences, "
+          f"{srv['probes']} probe batches; {srv['hot']} hot / {srv['cold']} cold clients over "
+          f"slots {srv['slots']}; a repeated cold batch came from the probe cache")
 
     # ------------------------------------------------------ phase 6: timing
     report = []
@@ -431,6 +770,55 @@ def main(argv) -> int:
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "shape": repr(sig), "eager_ms": t["eager_ms"],
         })
+    # ------------------------------------- phase 9: decode attention timing
+    g = torch.Generator(device="cuda").manual_seed(2)
+    H, Hkv, hd = 32, 8, 64  # granite-3-2b
+    # the main-path call: one layer of the paged cache (rows, lanes, L, S,
+    # Hkv, hd) read in place, at the last step's lengths
+    ck = torch.randn(2, DECODE_LANES, 40, DECODE_PAGE, Hkv, hd, generator=g, device="cuda")
+    cv = torch.randn(2, DECODE_LANES, 40, DECODE_PAGE, Hkv, hd, generator=g, device="cuda")
+    lens = dec["lens"].to("cuda").to(torch.int32)
+    B = lens.numel()
+    long_s = 32768
+    cases = []
+    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+        kl, vl = ck[:, :, 0].to(dt), cv[:, :, 0].to(dt)  # f32: the strided view itself
+        cases.append((f"main-path call {dname} (B={B}, S={DECODE_PAGE}, lengths "
+                      f"{lens.tolist()})", q, kl.reshape(B, DECODE_PAGE, Hkv, hd),
+                      vl.reshape(B, DECODE_PAGE, Hkv, hd), lens))
+    del ck, cv
+    dec_rows = []
+    for name, q, k, v, n in cases:
+        t = time_decode(torch, ops, ref, q, k, v, n)
+        dec_rows.append((name, t))
+    cases = None
+    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, long_s, Hkv, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, long_s, Hkv, hd, generator=g, device="cuda").to(dt)
+        n = torch.full((B,), long_s, dtype=torch.int32, device="cuda")
+        got, want = ops.decode_attention(q, k, v, n), ref.decode_attention(q, k, v, n)
+        if not torch.allclose(got.float(), want.float(), rtol=DECODE_TOL[dname], atol=DECODE_TOL[dname]):
+            raise AssertionError(f"decode at the long cache {dname}: kernel and plain differ")
+        dec_rows.append((f"long cache {dname} (B={B}, S={long_s}, full)", time_decode(torch, ops, ref, q, k, v, n)))
+        del q, k, v
+    for name, t in dec_rows:
+        print(f"[timing] decode_attention {name}: kernel {t['ms']:.5f} ms (eager {t['eager_ms']:.5f}), "
+              f"plain {t['plain_ms']:.5f}, library (sdpa) {t['library_ms']:.5f}, bound "
+              f"{t['bound'][0]:.6f} ms ({t['bound'][1]}) = {100 * t['bound'][0] / t['ms']:.1f}% of bound")
+    name, t = dec_rows[0]
+    report.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:72",
+        "launches": dec["launches"], "max_abs_err": worst["decode_attention"],
+        "main_path_max_abs_err": dec["call_err"][0],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+        "shape": name, "eager_ms": t["eager_ms"],
+        "long_cache_f32": {k: (v if k != "bound" else v[0]) for k, v in dec_rows[2][1].items()},
+    })
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

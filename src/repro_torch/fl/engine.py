@@ -203,6 +203,7 @@ class AuxoEngine:
         self.global_mu_seen = False
         self._probe_cache = DictProbeCache()
         self._probe_cache_key = -1
+        self.probe_train_dispatches = 0  # batched probe trainings run
         self.pipeline = RoundPipeline(self, mode=fl.execution)
 
     # -------------------------------------------------------------- views
@@ -256,6 +257,7 @@ class AuxoEngine:
             xs, ys = self.data.probe_batches(miss, self.fl.batch_size, self.fl.local_steps)
             if root_params is None:
                 root_params = self.pipeline.bank.params_of("0")
+            self.probe_train_dispatches += 1
             rows = {k: v[None].expand((n,) + tuple(v.shape)) for k, v in root_params.items()}
             with torch.no_grad():
                 deltas, _ = local_train(

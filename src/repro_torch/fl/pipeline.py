@@ -44,6 +44,7 @@ from repro_torch.core.cohort import distance_matrix
 from repro_torch.fl.algorithms import apply_stacked
 from repro_torch.fl.client import local_train
 from repro_torch.kernels import ops as kops
+from repro_torch.utils.tree import map_nested
 
 LATER = "later port slice"
 
@@ -62,12 +63,6 @@ def bank_capacity(auxo) -> Tuple[int, int]:
         return 1, 1
     n_partitions = -(-(auxo.max_cohorts - 1) // (k - 1))  # ceil
     return 1 + k * n_partitions, 1 + (k - 1) * n_partitions
-
-
-def _map_nested(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_nested(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -89,8 +84,8 @@ class CohortBank:
             out[0] = a
             return out
 
-        self.params = _map_nested(stack, params)
-        self.opt_state = _map_nested(stack, opt_state)
+        self.params = map_nested(stack, params)
+        self.opt_state = map_nested(stack, opt_state)
         self.slot_of: Dict[str, int] = {"0": 0}
         self.id_of: Dict[int, str] = {0: "0"}
         self.clock = np.zeros(self.capacity, np.float64)
@@ -103,7 +98,7 @@ class CohortBank:
 
     def opt_state_of(self, cohort_id: str):
         i = self.slot_of[cohort_id]
-        return _map_nested(lambda a: a[i], self.opt_state)
+        return map_nested(lambda a: a[i], self.opt_state)
 
     def spawn_children(self, parent: str, children: List[str]) -> List[int]:
         """Warm-start child slots from the parent slot (§4.2)."""
@@ -122,8 +117,8 @@ class CohortBank:
             a[idx] = a[ps].clone()  # in-place update of the bank tensor
             return a
 
-        _map_nested(copy, self.params)
-        _map_nested(copy, self.opt_state)
+        map_nested(copy, self.params)
+        map_nested(copy, self.opt_state)
         self.clock[idx] = self.clock[ps]
         self.rounds[idx] = self.rounds[ps]
         return idx
@@ -266,6 +261,11 @@ class RoundPipeline:
             engine._init_params, engine.server_opt.init(engine._init_params), capacity
         )
         self.table = AffinityTable(engine.data.n_clients, self.bank.capacity)
+        # §⑧ serving snapshot: the newest bank state consistent with the
+        # host tables (a round boundary), republished after every round.
+        # Each round's step replaces the bank's tensors rather than
+        # updating them, so holding the reference is a snapshot.
+        self.serve_params = self.bank.params
         self._all_ids_cache: Optional[np.ndarray] = None
         # flat execution width: the full round budget, fixed for the run;
         # L·quota(L) ≤ max(int(P·oc), 2·L) for every leaf count L
@@ -667,3 +667,4 @@ class RoundPipeline:
         if plan is None:
             return
         self.apply_feedback(plan, self.execute(plan))
+        self.serve_params = self.bank.params

@@ -9,19 +9,12 @@ JAX's ``vmap``.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict
 
 import torch
 
 from repro_torch import random as rnd
-
-
-def dense_init(key, shape, scale=None) -> torch.Tensor:
-    """Truncated-normal fan-in init (port of ``repro.models.common.dense_init``)."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return rnd.truncated_normal(key, -2.0, 2.0, shape) * std
+from repro_torch.models.common import dense_init
 
 
 @dataclasses.dataclass(frozen=True)

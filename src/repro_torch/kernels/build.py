@@ -18,7 +18,7 @@ from pathlib import Path
 from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cosine_sim.cu", "segment_aggregate.cu")
+SOURCES = ("cosine_sim.cu", "segment_aggregate.cu", "decode_attention.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libauxo_kernels.so"
@@ -98,10 +98,12 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.auxo_cosine_similarity.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, cf, vp]
         lib.auxo_cosine_similarity.restype = ci
         lib.auxo_segment_aggregate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.auxo_segment_aggregate.restype = ci
+        lib.auxo_decode_attention.argtypes = [vp] * 8 + [ci] * 5 + [cl] * 4 + [ci, ci, vp]
+        lib.auxo_decode_attention.restype = ci
         _lib = lib
     return _lib

@@ -3,6 +3,8 @@
 Same contract as ``repro.kernels.ops``:
   - any P, D and K; zero rows give similarity 0 (the CUDA kernels mask
     their ragged tile edges themselves, so nothing is padded or copied);
+  - decode attention takes any S and a scalar or (B,) length; the kernel
+    reads only each sequence's valid prefix, in place;
   - ids outside [0, K) (the JAX package's padding id is -1) carry weight 0
     and are dropped; ``weights=None`` means 1;
   - a leading cohort axis ``(C, P, D)`` is ONE launch;
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cosine_sim as _cs
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_aggregate as _sa
 
@@ -65,3 +68,27 @@ def segment_aggregate(
     w = None if weights is None else weights.to(torch.float32).contiguous()
     out = _sa.segment_aggregate(data.contiguous(), ids, num_segments, w)
     return out[0] if lead else out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length) -> torch.Tensor:
+    """GQA decode attention over a KV cache (flash-decode).
+
+    q: (B, H, hd); k, v: (B, S, Hkv, hd); length: scalar or (B,) valid KV
+    count. Returns (B, H, hd) in q's dtype. K and V are read in place when
+    their (Hkv, hd) axes are dense and their rows 16-byte aligned (a layer
+    slice of the paged cache is); otherwise they are copied dense first.
+    """
+    if _route(q) == "cpu":
+        return ref.decode_attention(q, k, v, length)
+    B, hd = q.shape[0], q.shape[-1]
+    dt = q.dtype if q.dtype in _KERNEL_DTYPES and k.dtype == v.dtype == q.dtype else torch.float32
+
+    def rows(t):
+        t = t.to(dt)
+        if t.stride(3) == 1 and t.stride(2) == hd and _da.aligned(t, t.stride()[:2]):
+            return t
+        return t.clone(memory_format=torch.contiguous_format)
+
+    qk, kk, vk = q.to(dt).contiguous(), rows(k), rows(v)
+    n = torch.as_tensor(length, device=q.device).to(torch.int32).broadcast_to((B,)).contiguous()
+    return _da.decode_attention(qk, kk, vk, n).to(q.dtype)

@@ -17,6 +17,13 @@ def tree_map(fn, *trees: Tree) -> Tree:
     return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
 
 
+def map_nested(fn, tree):
+    """``fn`` on every leaf of a nested dict (bank stacks, model params)."""
+    if isinstance(tree, dict):
+        return {k: map_nested(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def tree_add(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.add, a, b)
 

@@ -20,6 +20,8 @@ FORBIDDEN = re.compile(
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import sys, repro_torch, repro_torch.fl, repro_torch.core, repro_torch.kernels.ops\n"
+        "import repro_torch.models, repro_torch.configs, repro_torch.serve\n"
+        "import repro_torch.configs.granite_3_2b, repro_torch.configs.shapes\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -84,3 +86,54 @@ def test_later_slices_raise_not_implemented():
                dict(execution="sequential")):
         with pytest.raises(NotImplementedError):
             AuxoEngine(MLPTask(), pop, FLConfig(rounds=1, **kw), AuxoConfig(), device="cpu")
+
+
+def test_later_model_families_and_sliding_window_decode_raise():
+    from repro_torch import random as rnd
+    from repro_torch.configs import all_configs, reduce_config
+    from repro_torch.models import build_model
+    from repro_torch.models import common, transformer
+    from repro_torch.serve import CohortDecoder
+
+    families = set()
+    for cfg in all_configs().values():
+        small = reduce_config(cfg)
+        if cfg.family == "dense":
+            continue
+        families.add(cfg.family)
+        with pytest.raises(NotImplementedError):
+            build_model(small).init(rnd.key(0), device="cpu")
+        with pytest.raises(NotImplementedError):
+            build_model(cfg).param_count()
+        with pytest.raises(NotImplementedError):
+            CohortDecoder(build_model(small), dict, list, device="cpu")
+    assert families == {"moe", "ssm", "hybrid", "vlm", "audio"}
+    # a dense config with a sliding window (h2o-danube-3-4b) inits, but paged
+    # decode refuses it, as the JAX package does
+    danube = reduce_config(all_configs()["h2o_danube_3_4b"])
+    assert danube.family == "dense" and danube.sliding_window
+    with pytest.raises(NotImplementedError, match="full-attention"):
+        CohortDecoder(build_model(danube), dict, list, device="cpu")
+    x = torch.zeros(1, 2, danube.d_model)
+    for fn in (lambda: common.attention({}, danube, x, None),
+               lambda: common.apply_mrope(x, None, 1e4, (1, 1, 1)),
+               lambda: transformer.embed_tokens({}, reduce_config(all_configs()["musicgen_large"]), x)):
+        with pytest.raises(NotImplementedError):
+            fn()
+
+
+def test_decode_entry_points_without_device_raise_on_a_cpu_only_host(monkeypatch):
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import CohortDecoder, PagedKVCache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(reduce_config(get_config("granite-3-2b")))
+    for make in (lambda **kw: CohortDecoder(model, dict, list, **kw),
+                 lambda **kw: PagedKVCache(2, 2, 2, 16, **kw),
+                 lambda **kw: model.init(rnd.key(0), **kw),
+                 lambda **kw: model.init_bank(rnd.key(0), 2, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        make(device="cpu")
