@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                 # the whole check, as CI on the card runs it
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain only
+    python3 chip_smoke.py --decode-timing [--src DIR]  # build + phase 9 alone,
+        # of the package under DIR (default ./src): time two versions in turns
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -22,9 +24,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
   8. the serving plane: a 2000-query burst through ``ServingPlane`` on the
      engine of the main run, one inference per admitted batch, a repeated
      cold batch served from the probe cache; queries/s;
-  9. timing of decode attention at the main-path call and at a long cache,
-     f32 and bf16, beside its byte bound, the plain version and
-     ``F.scaled_dot_product_attention``.
+  9. timing of decode attention at the main-path call (f32, bf16), at a
+     32k cache of 8 sequences (full f32 and bf16, ragged bf16) and at the
+     decode_32k batch (128 x 32k, bf16), beside its byte bound, the plain
+     version and ``F.scaled_dot_product_attention``.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -34,6 +37,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -58,6 +62,13 @@ TOL = {"f32": (2e-5, 2e-5, 2e-5), "bf16": (2e-2, 5e-2, 5e-2)}  # cos, seg, seg-w
 DECODE_SHAPES = [(2, 8, 2, 16, 64, 40), (1, 4, 4, 32, 128, 128), (3, 16, 2, 64, 300, 200),
                  (2, 8, 8, 128, 1024, 1)]
 DECODE_TOL = {"f32": 2e-5, "bf16": 3e-2}
+# the configs' larger groups (B, H, Hkv, hd): g = 5 (llama4-maverick), 12
+# (starcoder2), 16 (qwen3-moe), at S with one split (512), two (520) and
+# eight (4096) under plan_splits
+GROUP_SHAPES = [(2, 40, 8, 128), (2, 48, 4, 128), (2, 64, 4, 128)]
+GROUP_S = (512, 520, 4096)
+# a long cache with ragged lengths, 0 (the mean of V over all S) and 1 among them
+RAGGED = (4, 32, 8, 64, 16384, (0, 1, 9000, 16384))
 
 
 def fail(msg: str) -> int:
@@ -130,8 +141,10 @@ def check_kernels(torch, ops, ref, cs, sa) -> float:
 
 def check_decode(torch, ops, ref, da) -> float:
     """Phase 3b: decode attention against its plain version on the card:
-    the JAX kernel tests' shapes, per-sequence lengths, length 0 and a
-    strided layer slice of a paged cache; two launches bit-identical."""
+    the JAX kernel tests' shapes, per-sequence lengths, length 0, a
+    strided layer slice of a paged cache, the configs' groups of 5, 12 and
+    16 heads on either side of the split threshold, and a ragged long
+    cache; two launches bit-identical."""
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
 
@@ -173,6 +186,16 @@ def check_decode(torch, ops, ref, da) -> float:
             raise AssertionError("the layer slice should be a strided view")
         lens = torch.randint(1, 257, (8,), generator=g, device="cuda")
         check(f"{dname} strided layer slice", rnd(8, 32, 64).to(dt), kl, vl, lens, tol)
+        for (B, H, Hkv, hd) in GROUP_SHAPES:
+            for S in GROUP_S:
+                q, k, v = rnd(B, H, hd).to(dt), rnd(B, S, Hkv, hd).to(dt), rnd(B, S, Hkv, hd).to(dt)
+                lens = torch.tensor([S, S // 2 + 3], device="cuda")
+                check(f"{dname} g={H // Hkv} {(B, H, Hkv, hd, S)}", q, k, v, lens, tol)
+        B, H, Hkv, hd, S, lens = RAGGED
+        q, k, v = rnd(B, H, hd).to(dt), rnd(B, S, Hkv, hd).to(dt), rnd(B, S, Hkv, hd).to(dt)
+        check(f"{dname} ragged long cache {(B, H, Hkv, hd, S)} lengths {lens}", q, k, v,
+              torch.tensor(lens, device="cuda"), tol)
+        del q, k, v
     # a CUDA tensor never falls back: inputs the kernel does not take raise
     q, k = rnd(2, 8, 48), rnd(2, 16, 2, 48)
     n = torch.ones(2, dtype=torch.int32, device="cuda")
@@ -351,10 +374,14 @@ def time_segment(torch, ops, ref, sig):
     )
 
 
-def time_decode(torch, ops, ref, q, k, v, lens):
+def time_decode(torch, ops, ref, q, k, v, lens, inner: int = 20, reps: int = 25,
+                plain_inner: int = 20):
     """One decode-attention call: kernel, plain version and one library
     call (``scaled_dot_product_attention`` with a length mask, timed only
-    as a yardstick), beside the byte bound of the valid prefixes."""
+    as a yardstick), beside the byte bound of the valid prefixes. Large
+    calls take fewer graph replays (``inner``, ``reps``), and the plain
+    version, whose float32 copies of K and V each graph holds, fewer
+    calls per graph (``plain_inner``)."""
     B, H, hd = q.shape
     Hkv = k.shape[2]
     el = q.element_size()
@@ -365,13 +392,16 @@ def time_decode(torch, ops, ref, q, k, v, lens):
     q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     mask = (torch.arange(k.shape[1], device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)  # noqa: E731
-    return dict(
-        ms=graph_ms(torch, lambda: ops.decode_attention(q, k, v, lens)),
-        eager_ms=eager_ms(torch, lambda: ops.decode_attention(q, k, v, lens)),
-        plain_ms=graph_ms(torch, lambda: ref.decode_attention(q, k, v, lens)),
-        library_ms=graph_ms(torch, lib),
+    pr = max(3, reps * plain_inner // inner)
+    out = dict(
+        ms=graph_ms(torch, lambda: ops.decode_attention(q, k, v, lens), inner, reps),
+        eager_ms=eager_ms(torch, lambda: ops.decode_attention(q, k, v, lens), inner, reps),
+        plain_ms=graph_ms(torch, lambda: ref.decode_attention(q, k, v, lens), plain_inner, pr),
+        library_ms=graph_ms(torch, lib, inner, reps),
         bound=bound(nbytes, flops, FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS),
     )
+    torch.cuda.empty_cache()
+    return out
 
 
 U32 = 2.0 ** -24  # float32 unit roundoff
@@ -612,16 +642,119 @@ def profile_rounds(torch, eng, start: int, n: int) -> str:
             f"device busy {dev:.6f} s under the profiler = {100 * dev / wall:.2f}% of the wall")
 
 
+LONG_S = 32768
+MAIN_LENS = (2 * DECODE_STEPS,) * DECODE_LANES + (DECODE_STEPS,) * DECODE_LANES
+
+
+def decode_timing(torch, ops, ref):
+    """Phase 9: decode attention timed at the main path's call (one layer of
+    the paged cache at the last step's lengths, read in place), at a 32k
+    cache of 8 sequences (full, f32 and bf16; ragged, bf16) and at the
+    ``decode_32k`` batch (128 sequences of 32k, bf16). Every row but the
+    main-path call is first held against the plain version. Returns
+    [(report key, name, times)] in that order."""
+    from repro_torch.kernels import decode_attention as da
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    H, Hkv, hd = 32, 8, 64  # granite-3-2b
+    rows = []
+    if hasattr(da, "blocks_per_sm"):  # an earlier package (--src) may not plan by occupancy
+        sms = da.sm_count(0)
+        for dt in (torch.float32, torch.bfloat16):
+            per_sm = da.blocks_per_sm(0, hd, H // Hkv, dt)
+            plans = {f"B={B} S={S}": da.plan_splits(B, Hkv, S, sms, per_sm)
+                     for B, S in ((len(MAIN_LENS), DECODE_PAGE), (8, LONG_S), (128, LONG_S))}
+            print(f"[occupancy] decode split kernel, {dt}, hd {hd}, g {H // Hkv}: {per_sm} "
+                  f"resident blocks per SM x {sms} SMs; (n_split, chunk) {plans}")
+
+    def timed(key, name, q, k, v, n, check=True, **kw):
+        if check:
+            tol = DECODE_TOL["f32" if q.dtype == torch.float32 else "bf16"]
+            got, want = ops.decode_attention(q, k, v, n), ref.decode_attention(q, k, v, n)
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                raise AssertionError(f"decode {name}: kernel and plain differ by {err}")
+            del got, want
+            torch.cuda.empty_cache()
+        t = time_decode(torch, ops, ref, q, k, v, n, **kw)
+        rows.append((key, name, t))
+        print(f"[timing] decode_attention {name}: kernel {t['ms']:.5f} ms (eager "
+              f"{t['eager_ms']:.5f}), plain {t['plain_ms']:.5f}, library (sdpa) "
+              f"{t['library_ms']:.5f}, bound {t['bound'][0]:.6f} ms ({t['bound'][1]}) = "
+              f"{100 * t['bound'][0] / t['ms']:.1f}% of bound", flush=True)
+
+    # (rows, lanes, L, S, Hkv, hd), lanes before layers as in serve/kv_cache.py
+    ck = torch.randn(2, DECODE_LANES, 40, DECODE_PAGE, Hkv, hd, generator=g, device="cuda")
+    cv = torch.randn(2, DECODE_LANES, 40, DECODE_PAGE, Hkv, hd, generator=g, device="cuda")
+    lens = torch.tensor(MAIN_LENS, dtype=torch.int32, device="cuda")
+    B = lens.numel()
+    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+        kl, vl = ck[:, :, 0].to(dt), cv[:, :, 0].to(dt)  # f32: the strided view itself
+        timed(f"main_path_{dname}", f"main-path call {dname} (B={B}, S={DECODE_PAGE}, "
+              f"lengths {list(MAIN_LENS)})", q, kl.reshape(B, DECODE_PAGE, Hkv, hd),
+              vl.reshape(B, DECODE_PAGE, Hkv, hd), lens, check=False)
+    del ck, cv
+    full = torch.full((B,), LONG_S, dtype=torch.int32, device="cuda")
+    ragged = torch.linspace(4096, LONG_S, B, device="cuda").round().to(torch.int32)
+    for key, dname, dt, n in (("long_cache_f32", "f32", torch.float32, full),
+                              ("long_cache_bf16", "bf16", torch.bfloat16, full),
+                              ("ragged_bf16", "bf16", torch.bfloat16, ragged)):
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, LONG_S, Hkv, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, LONG_S, Hkv, hd, generator=g, device="cuda").to(dt)
+        what = "full" if n is full else f"ragged lengths {n.tolist()}"
+        timed(key, f"long cache {dname} (B={B}, S={LONG_S}, {what})", q, k, v, n)
+        del q, k, v
+    # src/repro/configs/shapes.py decode_32k: 128 sequences of 32768, granite heads
+    B = 128
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.empty(B, LONG_S, Hkv, hd, dtype=torch.bfloat16, device="cuda")
+    v = torch.empty_like(k)
+    for t in (k, v):  # drawn a sequence at a time: no float32 copy of 4.3 GB
+        for b in range(B):
+            t[b] = torch.randn(LONG_S, Hkv, hd, generator=g, device="cuda")
+    n = torch.full((B,), LONG_S, dtype=torch.int32, device="cuda")
+    timed("decode_32k_bf16", f"decode_32k bf16 (B={B}, S={LONG_S}, full)", q, k, v, n,
+          inner=5, reps=10, plain_inner=1)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def decode_timing_only(torch) -> int:
+    """``--decode-timing``: build, then phase 9 alone, and its rows as JSON
+    (for timing two versions of the package in turns, ``--src``)."""
+    from repro_torch.kernels import build, ops, ref
+
+    so = build.build()
+    if build.build_log:
+        print(build.build_log)
+    print(f"[build] {so}")
+    rows = decode_timing(torch, ops, ref)
+    print(json.dumps({"src": SRC, "decode_timing": {
+        key: {"ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
+              "library_ms": t["library_ms"], "bound_ms": t["bound"][0]}
+        for key, _, t in rows}}))
+    print(smi())
+    return 0
+
+
 def main(argv) -> int:
+    global SRC
     try:
         import torch
     except ImportError:
         return fail("torch is not installed")
     if not torch.cuda.is_available():
         return fail("no CUDA device: this check runs only on the card")
+    if "--src" in argv:  # another copy of the package, e.g. an earlier commit's
+        SRC = os.path.abspath(argv[argv.index("--src") + 1])
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         return fail(f"the port package is missing under {SRC}")
     sys.path.insert(0, SRC)
+    if "--decode-timing" in argv:
+        return decode_timing_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -771,44 +904,11 @@ def main(argv) -> int:
             "shape": repr(sig), "eager_ms": t["eager_ms"],
         })
     # ------------------------------------- phase 9: decode attention timing
-    g = torch.Generator(device="cuda").manual_seed(2)
-    H, Hkv, hd = 32, 8, 64  # granite-3-2b
-    # the main-path call: one layer of the paged cache (rows, lanes, L, S,
-    # Hkv, hd) read in place, at the last step's lengths
-    ck = torch.randn(2, DECODE_LANES, 40, DECODE_PAGE, Hkv, hd, generator=g, device="cuda")
-    cv = torch.randn(2, DECODE_LANES, 40, DECODE_PAGE, Hkv, hd, generator=g, device="cuda")
-    lens = dec["lens"].to("cuda").to(torch.int32)
-    B = lens.numel()
-    long_s = 32768
-    cases = []
-    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
-        kl, vl = ck[:, :, 0].to(dt), cv[:, :, 0].to(dt)  # f32: the strided view itself
-        cases.append((f"main-path call {dname} (B={B}, S={DECODE_PAGE}, lengths "
-                      f"{lens.tolist()})", q, kl.reshape(B, DECODE_PAGE, Hkv, hd),
-                      vl.reshape(B, DECODE_PAGE, Hkv, hd), lens))
-    del ck, cv
-    dec_rows = []
-    for name, q, k, v, n in cases:
-        t = time_decode(torch, ops, ref, q, k, v, n)
-        dec_rows.append((name, t))
-    cases = None
-    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
-        k = torch.randn(B, long_s, Hkv, hd, generator=g, device="cuda").to(dt)
-        v = torch.randn(B, long_s, Hkv, hd, generator=g, device="cuda").to(dt)
-        n = torch.full((B,), long_s, dtype=torch.int32, device="cuda")
-        got, want = ops.decode_attention(q, k, v, n), ref.decode_attention(q, k, v, n)
-        if not torch.allclose(got.float(), want.float(), rtol=DECODE_TOL[dname], atol=DECODE_TOL[dname]):
-            raise AssertionError(f"decode at the long cache {dname}: kernel and plain differ")
-        dec_rows.append((f"long cache {dname} (B={B}, S={long_s}, full)", time_decode(torch, ops, ref, q, k, v, n)))
-        del q, k, v
-    for name, t in dec_rows:
-        print(f"[timing] decode_attention {name}: kernel {t['ms']:.5f} ms (eager {t['eager_ms']:.5f}), "
-              f"plain {t['plain_ms']:.5f}, library (sdpa) {t['library_ms']:.5f}, bound "
-              f"{t['bound'][0]:.6f} ms ({t['bound'][1]}) = {100 * t['bound'][0] / t['ms']:.1f}% of bound")
-    name, t = dec_rows[0]
-    report.append({
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 7's bank and cache are gone: room for the 8.6 GB batch
+    dec_rows = decode_timing(torch, ops, ref)
+    key, name, t = dec_rows[0]
+    row = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:72",
@@ -817,8 +917,12 @@ def main(argv) -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
         "bound_by": t["bound"][1], "library_ms": t["library_ms"],
         "shape": name, "eager_ms": t["eager_ms"],
-        "long_cache_f32": {k: (v if k != "bound" else v[0]) for k, v in dec_rows[2][1].items()},
-    })
+    }
+    for key, name, t in dec_rows[1:]:
+        row[key] = {"shape": name, "ms": t["ms"], "eager_ms": t["eager_ms"],
+                    "bound_ms": t["bound"][0], "plain_ms": t["plain_ms"],
+                    "library_ms": t["library_ms"]}
+    report.append(row)
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

@@ -103,7 +103,9 @@ def library() -> ctypes.CDLL:
         lib.auxo_cosine_similarity.restype = ci
         lib.auxo_segment_aggregate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.auxo_segment_aggregate.restype = ci
-        lib.auxo_decode_attention.argtypes = [vp] * 8 + [ci] * 5 + [cl] * 4 + [ci, ci, vp]
+        lib.auxo_decode_attention.argtypes = [vp] * 6 + [ci] * 5 + [cl] * 4 + [ci, ci, ci, vp]
         lib.auxo_decode_attention.restype = ci
+        lib.auxo_decode_blocks_per_sm.argtypes = [ci, ci, ci]
+        lib.auxo_decode_blocks_per_sm.restype = ci
         _lib = lib
     return _lib

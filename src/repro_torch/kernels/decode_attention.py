@@ -7,26 +7,59 @@ version in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 # kernel launches since import (or since a caller reset it to 0); one call
-# (the split pass and its merge) counts once
+# (the split pass and, with several splits, its merge) counts once
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-TILE = 32  # tokens per shared-memory tile (kTile in the source)
+MAX_GROUP = 16  # query heads per KV head (kMaxGroup in the source)
+TILE = 64  # tokens of one block step (kTile in the source): chunks are multiples of it
+MIN_CHUNK = 512  # fewer tokens than this per block do not pay for a merge
 
 
-def n_splits(B: int, Hkv: int, S: int, device) -> int:
-    """KV chunks per (sequence, KV head): enough blocks to fill the card's
-    SMs about twice over, and no more chunks than tiles of S."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(2 * sms / (B * Hkv)), math.ceil(S / TILE), 65535))
+def plan_splits(B: int, Hkv: int, S: int, sms: int, per_sm: int) -> Tuple[int, int]:
+    """(n_split, chunk): the KV axis of each (sequence, KV head) cut into
+    n_split chunks of ``chunk`` tokens, from the shapes and the card alone
+    (no length is read, so nothing syncs). The grid is one wave: B * Hkv *
+    n_split blocks, at most the ``sms * per_sm`` that the card holds at
+    once (``per_sm`` resident blocks per SM), since a partial second wave
+    costs up to 40%. One split, chunk = S, when S is short or the pairs
+    fill half the wave or more; else chunks of a multiple of TILE tokens,
+    at least MIN_CHUNK. A block whose chunk starts past its sequence's
+    length exits at once, so ragged lengths cost what they hold."""
+    pairs, slots = B * Hkv, sms * per_sm
+    if S <= MIN_CHUNK or 2 * pairs > slots:
+        return 1, S
+    chunk = max(MIN_CHUNK, math.ceil(S / (slots // pairs) / TILE) * TILE)
+    n = math.ceil(S / chunk)
+    return (1, S) if n == 1 else (n, chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(index: int, hd: int, g: int, dtype: torch.dtype) -> int:
+    """Split-kernel blocks one SM of device ``index`` holds at once (the
+    CUDA occupancy calculator on the kernel's registers and shared
+    memory), read once per shape class."""
+    with torch.cuda.device(index):
+        n = build.library().auxo_decode_blocks_per_sm(hd, g, _DTYPES[dtype])
+    if n < 1:
+        raise RuntimeError(f"decode kernel occupancy query failed: {n}")
+    return n
 
 
 def aligned(t: torch.Tensor, strides) -> bool:
@@ -40,8 +73,10 @@ def decode_attention(
     """q: (B, H, hd) contiguous; k, v: (B, S, Hkv, hd) whose (Hkv, hd) axes
     are dense (any batch and sequence strides, 16-byte aligned); length:
     (B,) int32; all f32 or all bf16 on one CUDA device, hd in {16, 32, 64,
-    128}. Returns (B, H, hd) in q's dtype. Launches on the current stream;
-    the output and the split partials are the only allocations."""
+    128}, at most 16 query heads per KV head. Returns (B, H, hd) in q's
+    dtype. One launch on the current stream (two with several splits: the
+    split pass and its merge); the output, and with several splits one
+    buffer of partial softmaxes, are the only allocations."""
     global launches
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, length)):
@@ -74,19 +109,21 @@ def decode_attention(
         raise ValueError("decode kernel needs B >= 1 and S >= 1")
     if max(B * H, S, B * Hkv) >= 2**31:
         raise ValueError("decode kernel takes 32-bit sizes")
-    ns = n_splits(B, Hkv, S, dev)
     g = H // Hkv
+    if g > MAX_GROUP:
+        raise ValueError(f"decode kernel takes at most {MAX_GROUP} query heads per KV head, got {g}")
+    ns, chunk = plan_splits(B, Hkv, S, sm_count(dev.index),
+                            blocks_per_sm(dev.index, hd, g, q.dtype))
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
-    part_m = torch.empty((B * Hkv, ns, g), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B * Hkv, ns, g, hd), dtype=torch.float32, device=dev)
+    part = (torch.empty(B * Hkv * ns * g * (hd + 2), dtype=torch.float32, device=dev)
+            if ns > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = build.library().auxo_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            None if part is None else part.data_ptr(),
             B, H, Hkv, hd, S, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            ns, _DTYPES[q.dtype], stream,
+            ns, chunk, _DTYPES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")

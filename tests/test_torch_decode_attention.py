@@ -12,10 +12,13 @@ JAX is imported inside the comparison tests only, so that the ``cuda``
 tests also run on a card whose machine has no JAX:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_decode_attention.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops, ref
 
 # tests/test_decode_attention_kernel.py: (B, H, Hkv, hd, S, length)
@@ -120,6 +123,122 @@ def test_strided_cache_slice_reads_like_a_copy():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# ------------------------------------------- the kernel's split and merge plan
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 4])
+@pytest.mark.parametrize("B,Hkv,S", [(8, 8, 128), (128, 8, 32768), (8, 8, 32768), (1, 8, 32768),
+                                     (2, 8, 512), (2, 8, 520), (2, 4, 4096), (4, 8, 16384),
+                                     (3, 2, 300), (1, 1, 100000)])
+def test_plan_splits_covers_every_valid_token_once(B, Hkv, S, per_sm):
+    n, chunk = da.plan_splits(B, Hkv, S, H100_SMS, per_sm)
+    assert 1 <= n <= 65535 and n * chunk >= S and (n - 1) * chunk < S
+    if n > 1:  # one wave of blocks, chunks of whole block steps
+        assert chunk % da.TILE == 0 and chunk >= da.MIN_CHUNK
+        assert B * Hkv * n <= H100_SMS * per_sm
+    for length in (0, 1, S // 3, S - 1, S):
+        n_eff = S if length <= 0 else length
+        if n_eff == 0:
+            continue
+        owner = np.arange(n_eff) // chunk  # the one split whose [start, end) holds each token
+        assert owner.max() < n
+        active = np.arange(n) * chunk < n_eff  # blocks that do not exit at once
+        assert active[0]  # split 0 is never empty
+        assert np.array_equal(np.bincount(owner, minlength=n) > 0, active)
+
+
+def test_plan_splits_at_the_timed_shapes():
+    # the main path's page and the decode_32k batch: one split, one launch
+    assert da.plan_splits(8, 8, 128, H100_SMS, 2) == (1, 128)
+    assert da.plan_splits(128, 8, 32768, H100_SMS, 1) == (1, 32768)
+    # 8 sequences of 32k fill one wave: 2 splits of 16k at one bf16 block
+    # per SM (128 of 132 SMs), 4 of 8k at two f32 blocks per SM
+    assert da.plan_splits(8, 8, 32768, H100_SMS, 1) == (2, 16384)
+    assert da.plan_splits(8, 8, 32768, H100_SMS, 2) == (4, 8192)
+    for per_sm in (1, 2):
+        n, _ = da.plan_splits(8, 8, 32768, H100_SMS, per_sm)
+        assert 0.95 * H100_SMS * per_sm <= 8 * 8 * n <= H100_SMS * per_sm
+
+
+def emulate(q, k, v, length, n_split, chunk, bf16):
+    """The kernel's order of work in plain PyTorch (float32). Split s
+    takes tokens [s chunk, (s + 1) chunk) of the valid prefix; in it, warp
+    w takes tokens [16 w, 16 w + 16) of every 64-token step and keeps its
+    own online softmax (running max m, normaliser l, accumulator), with
+    P rounded to bf16 before P · V in the bf16 path; the warps' states
+    merge in warp order, then the splits' in split order."""
+    W, R = 4, 16
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    steps = math.ceil(chunk / (W * R))
+    n = torch.as_tensor(length).broadcast_to((B,))
+    n_eff = torch.where(n <= 0, torch.full_like(n, S), n.clamp(max=S))
+    tok = (torch.arange(n_split)[:, None, None, None] * chunk
+           + torch.arange(steps)[None, :, None, None] * W * R
+           + torch.arange(W)[None, None, :, None] * R + torch.arange(R))  # (ns, steps, W, R)
+    end = torch.minimum((torch.arange(n_split)[None, :] + 1) * chunk, n_eff[:, None])  # (B, ns)
+    valid = tok[None] < end[:, :, None, None, None]  # (B, ns, steps, W, R)
+    tc = tok.clamp(max=S - 1).reshape(-1)
+    kg = k.float()[:, tc].reshape(B, *tok.shape, Hkv, hd)
+    vg = v.float()[:, tc].reshape(B, *tok.shape, Hkv, hd)
+    qg = q.float().reshape(B, Hkv, g, hd)
+    s = torch.einsum("bngd,bxiwrnd->bngxiwr", qg, kg) / math.sqrt(hd)
+    s = torch.where((n <= 0)[:, None, None, None, None, None, None], torch.tensor(-1e30), s)
+    s = s.masked_fill(~valid[:, None, None], -math.inf)
+    m = torch.cummax(s.amax(-1), dim=-2).values  # (B, Hkv, g, ns, steps, W): running max
+    m_fin = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # steps a warp never takes
+    p = torch.exp(s - m_fin[..., None])
+    pq = p.bfloat16().float() if bf16 else p
+    last = m[..., -1:, :]  # each warp's final max
+    last_fin = torch.where(torch.isfinite(last), last, torch.zeros_like(last))
+    scale = torch.where(torch.isfinite(m), torch.exp(m - last_fin), torch.zeros_like(m))
+    l_w = (p.sum(-1) * scale).sum(-2)  # (B, Hkv, g, ns, W)
+    acc_w = torch.einsum("bngxiwr,bxiwrnd->bngxiwd", pq, vg)
+    acc_w = (acc_w * scale[..., None]).sum(-3)  # (B, Hkv, g, ns, W, hd)
+    m_w = last[..., 0, :]  # (B, Hkv, g, ns, W)
+
+    def merge(m_, l_, a_):  # over the last axis of m_ and l_ (a_: one before hd)
+        top = m_.amax(-1, keepdim=True)
+        top_fin = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+        w = torch.where(torch.isfinite(m_), torch.exp(m_ - top_fin), torch.zeros_like(m_))
+        return top.squeeze(-1), (l_ * w).sum(-1), (a_ * w[..., None]).sum(-2)
+
+    m_s, l_s, a_s = merge(m_w, l_w, acc_w)  # warps -> (B, Hkv, g, ns)
+    _, l_o, a_o = merge(m_s, l_s, a_s)  # splits -> (B, Hkv, g)
+    return (a_o / l_o.clamp(min=1e-30)[..., None]).reshape(B, H, hd)
+
+
+# (B, H, Hkv, hd, S, lengths, chunk): None = plan_splits' chunk on an H100
+# (one bf16 block per SM, two f32 blocks)
+EMULATED = [(2, 8, 2, 16, 64, 40, None), (1, 4, 4, 32, 128, 128, None),
+            (3, 16, 2, 64, 300, 200, None), (2, 8, 8, 128, 1024, 1, None),
+            (4, 8, 4, 32, 256, [1, 64, 200, 256], 64), (3, 8, 2, 16, 64, [0, 5, 0], None),
+            (2, 40, 8, 128, 520, [520, 263], None), (2, 64, 4, 128, 4096, [4096, 2051], None),
+            (4, 32, 8, 64, 4096, [0, 1, 3000, 4096], 512),
+            (1, 32, 8, 64, 32768, 32768, None)]
+
+
+@pytest.mark.parametrize("case", EMULATED, ids=lambda c: f"B{c[0]}-H{c[1]}-Hkv{c[2]}-hd{c[3]}-S{c[4]}")
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_kernel_order_matches_jax_reference(jax_kernels, case, dname):
+    """The kernel's split / step / warp / merge order, with P rounded to
+    bf16 in the bf16 path, within the JAX tests' tolerance of the JAX
+    package's reference; the 32k case shows that the rounding of P fits
+    3e-2 at the long cache."""
+    _, jref, jnp = jax_kernels
+    B, H, Hkv, hd, S, L, chunk = case
+    rng = np.random.default_rng(B * 1000 + S)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(jnp, rng, B, H, Hkv, hd, S, dname)
+    n_split, chunk_ = da.plan_splits(B, Hkv, S, H100_SMS, 1 if dname == "bf16" else 2)
+    if chunk is not None:
+        n_split, chunk_ = math.ceil(S / chunk), chunk
+    got = emulate(tq, tk, tv, torch.tensor(L), n_split, chunk_, dname == "bf16")
+    want = jref.decode_attention(jq, jk, jv, jnp.asarray(L)).astype(jnp.float32)
+    _close(got, want, TOL[dname])
+
+
 # --------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda():
@@ -162,3 +281,42 @@ def test_cuda_kernel_reads_a_strided_cache_slice(cuda):
     got = ops.decode_attention(q, kl, kl, lens)
     want = ref.decode_attention(q, kl, kl, lens)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 40, 8, 128), (2, 48, 4, 128), (2, 64, 4, 128)],
+                         ids=["g5", "g12", "g16"])
+@pytest.mark.parametrize("S", [512, 520, 4096])
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_cuda_kernel_groups_of_the_configs(cuda, shape, S, dname):
+    """g = 5 (llama4-maverick), 12 (starcoder2), 16 (qwen3-moe), with one
+    split (S 512), two (520) and eight (4096)."""
+    B, H, Hkv, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(H * 10 + S)
+    dt = TORCH_DTYPES[dname]
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dt)
+    n = torch.tensor([S, S // 2 + 3], device=cuda)
+    got, again = ops.decode_attention(q, k, v, n), ops.decode_attention(q, k, v, n)
+    want = ref.decode_attention(q, k, v, n)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dname], atol=TOL[dname])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_cuda_kernel_ragged_long_cache(cuda, dname):
+    """Lengths 0 (the mean of V over all S), 1, and ragged, over 8192."""
+    B, H, Hkv, hd, S = 4, 32, 8, 64, 8192
+    g = torch.Generator(device=cuda).manual_seed(11)
+    dt = TORCH_DTYPES[dname]
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dt)
+    n = torch.tensor([0, 1, 5000, 8192], device=cuda)
+    before = da.launches
+    got, again = ops.decode_attention(q, k, v, n), ops.decode_attention(q, k, v, n)
+    want = ref.decode_attention(q, k, v, n)
+    assert da.launches == before + 2 and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dname], atol=TOL[dname])
