@@ -5,16 +5,25 @@
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain only
     python3 chip_smoke.py --decode-timing [--src DIR]  # build + phase 9 alone,
         # of the package under DIR (default ./src): time two versions in turns
+    python3 chip_smoke.py --kernel-timing [--src DIR]  # build + phase 6's fixed
+        # rows of the segment and cosine kernels alone, likewise
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
   2. build: compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. kernel vs plain version on the card, over the JAX kernel tests' shape
-     sweep and the main-path shapes, f32 and bf16, with a cohort axis;
+     sweep, the main-path shapes, stage 2 at 32 and 64 cohorts (K = 63,
+     127) and the kernels_micro shapes, f32 and bf16, with a cohort axis,
+     int64 and int32 ids; two launches bit-identical at K = 63 and at
+     (8192, 512, 32);
   4. the main path: ``run_auxo`` on the openimage-like population with the
      paper benchmarks' settings; every kernel must have launched;
   5. determinism: a second run from the same seed is bit-identical;
-  6. timing at the main-path shapes (CUDA events, median of >= 20 runs);
+  6. timing at the main-path shapes (CUDA events, median of >= 20 runs):
+     the largest call shapes of the main run and its largest D = 1 call,
+     stage 2 at 63 segments and the kernels_micro shapes (rotated over
+     input copies past the 50 MB L2), each beside its bound, the plain
+     version, its eager time and one library call;
   7. paged cohort decode at granite-3-2b's full width: a 3-slot bank from
      ``model_init``, 2 live cohorts x 4 lanes, 16 steps, a partition, 16
      more; every decode-kernel call of the path held against the plain
@@ -57,6 +66,12 @@ BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 SWEEP = [(1, 128, 2), (7, 33, 3), (128, 512, 8), (200, 300, 5), (1024, 256, 16),
          (64, 64, 64), (512, 128, 4), (64, 128, 2), (125, 6922, 7), (125, 1, 7),
          (64, 1, 2), (0, 128, 2), (33, 128, 1)]
+# stage 2 at 32 and 64 cohorts (K = 63, 127), benchmarks/kernels_micro.py's
+# shapes, a narrow call past one chunk of rows, two chunks of wide rows,
+# and a K whose (K, columns) tile is too large for shared memory (sorted in
+# two passes)
+SWEEP_WIDE_K = [(125, 6922, 63), (125, 6922, 127), (1024, 256, 8), (4096, 256, 16),
+                (8192, 512, 32), (300, 1, 63), (300, 6922, 7), (600, 40, 400)]
 TOL = {"f32": (2e-5, 2e-5, 2e-5), "bf16": (2e-2, 5e-2, 5e-2)}  # cos, seg, seg-weighted
 # tests/test_decode_attention_kernel.py shapes (B, H, Hkv, hd, S, length)
 DECODE_SHAPES = [(2, 8, 2, 16, 64, 40), (1, 4, 4, 32, 128, 128), (3, 16, 2, 64, 300, 200),
@@ -90,7 +105,7 @@ def check_kernels(torch, ops, ref, cs, sa) -> float:
     """Phase 3: every kernel against its plain version on the card."""
     worst = {"cosine_similarity": 0.0, "segment_aggregate": 0.0}
     g = torch.Generator(device="cuda").manual_seed(0)
-    for (P, D, K) in SWEEP:
+    for (P, D, K) in SWEEP + SWEEP_WIDE_K:
         for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             tcos, tseg, tsegw = TOL[dname]
             for C in (None, 3):
@@ -108,29 +123,43 @@ def check_kernels(torch, ops, ref, cs, sa) -> float:
                 worst["cosine_similarity"] = max(worst["cosine_similarity"], err)
                 # ids in [-1, K]: -1 and K are padding and must be dropped
                 ids = torch.randint(-1, K + 1, lead + (P,), generator=g, device="cuda")
-                for weighted in (False, True):
+                for weighted, idt in ((False, torch.int64), (True, torch.int64),
+                                      (False, torch.int32), (True, torch.int32)):
                     w = (torch.rand(lead + (P,), generator=g, device="cuda")
                          if weighted else None)
-                    got = ops.segment_aggregate(x, ids, K, w)
+                    before = sa.launches
+                    got = ops.segment_aggregate(x, ids.to(idt), K, w)
                     want = ref.segment_aggregate(x, ids, K, w)
                     torch.cuda.synchronize()
+                    if P and sa.launches != before + 1:
+                        raise AssertionError(f"segment {(P, D, K)}: a CUDA call did not launch")
                     tol = tsegw if weighted else tseg
                     err = (got - want).abs().max().item() if got.numel() else 0.0
                     if not torch.allclose(got, want, rtol=tol, atol=tol):
                         raise AssertionError(
-                            f"segment {dname} C={C} w={weighted} {(P, D, K)}: max err {err}")
+                            f"segment {dname} C={C} w={weighted} {idt} {(P, D, K)}: max err {err}")
                     worst["segment_aggregate"] = max(worst["segment_aggregate"], err)
-    # run-to-run bit-identity of the fixed-order reductions
+    # run-to-run bit-identity of the fixed-order reductions: stage 2 at 7
+    # and 63 segments, and both kernels at (8192, 512, 32)
     x = torch.randn(1, 125, 6922, generator=g, device="cuda")
-    ids = torch.randint(0, 7, (1, 125), generator=g, device="cuda")
     w = torch.rand(1, 125, generator=g, device="cuda")
-    a = ops.segment_aggregate(x, ids, 7, w)
-    b = ops.segment_aggregate(x, ids, 7, w)
-    if not torch.equal(a, b):
-        raise AssertionError("segment_aggregate is not run-to-run identical")
-    # a CUDA tensor never falls back: wrong inputs raise
+    for K in (7, 63):
+        ids = torch.randint(0, K, (1, 125), generator=g, device="cuda")
+        if not torch.equal(ops.segment_aggregate(x, ids, K, w), ops.segment_aggregate(x, ids, K, w)):
+            raise AssertionError(f"segment_aggregate at K={K} is not run-to-run identical")
+    for dt in (torch.float32, torch.bfloat16):
+        xb = torch.randn(8192, 512, generator=g, device="cuda").to(dt)
+        cb = torch.randn(32, 512, generator=g, device="cuda").to(dt)
+        ib = torch.randint(0, 32, (8192,), generator=g, device="cuda")
+        if not torch.equal(ops.segment_aggregate(xb, ib, 32), ops.segment_aggregate(xb, ib, 32)):
+            raise AssertionError(f"segment_aggregate {dt} (8192, 512, 32) is not run-to-run identical")
+        if not torch.equal(ops.cosine_similarity(xb, cb), ops.cosine_similarity(xb, cb)):
+            raise AssertionError(f"cosine_similarity {dt} (8192, 512, 32) is not run-to-run identical")
+    del xb, cb, ib
+    # a CUDA tensor never falls back: inputs the kernels do not take raise
+    # (int64 ids are taken as they come; int16 ids are not)
     for bad in (lambda: cs.cosine_similarity(x.double(), x.double()),
-                lambda: sa.segment_aggregate(x, ids.long(), 7)):
+                lambda: sa.segment_aggregate(x, ids.to(torch.int16), 7)):
         try:
             bad()
         except (TypeError, ValueError):
@@ -330,48 +359,120 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def time_cosine(torch, ops, ref, sig):
+L2_BYTES = 50e6  # H100 L2: rows whose bound is HBM bytes rotate over more than twice this
+
+
+def rotating(fn, inputs):
+    """One call of fn per call, on the next of the input tuples in turn."""
+    i = [0]
+
+    def call():
+        r = fn(*inputs[i[0] % len(inputs)])
+        i[0] += 1
+        return r
+
+    return call
+
+
+def time_calls(torch, kernel, plain, library, inputs, nbytes, flops, peak=FP32_FLOPS):
+    """Kernel (graph and eager), plain version and library call on the same
+    rotating inputs: each graph holds at least one call per input copy."""
+    inner = max(20, len(inputs))
+    return dict(
+        ms=graph_ms(torch, rotating(kernel, inputs), inner),
+        eager_ms=eager_ms(torch, rotating(kernel, inputs), inner),
+        plain_ms=graph_ms(torch, rotating(plain, inputs), inner),
+        library_ms=None if library is None else graph_ms(torch, rotating(library, inputs), inner),
+        bound=bound(nbytes, flops, peak),
+    )
+
+
+def n_copies(nbytes: float, rotate: bool) -> int:
+    return max(2, math.ceil(2 * L2_BYTES / nbytes)) if rotate else 1
+
+
+def time_cosine(torch, ops, ref, sig, rotate: bool = False):
+    """sig: (x shape, c shape, dtype). The bound takes the tensor-core peak
+    for bf16 (the card could run the product there)."""
     (xs, cs_shape, dt) = sig
-    x = torch.randn(xs, device="cuda").to(dt)
-    c = torch.randn(cs_shape, device="cuda").to(dt)
     C, P, D = xs
     K = cs_shape[1]
-    el = x.element_size()
+    el = torch.empty((), dtype=dt).element_size()
     nbytes = C * (P * D + K * D) * el + C * P * K * 4
     flops = C * (2 * P * K * D + 2 * P * D + 2 * K * D)
+    ins = [(torch.randn(xs, device="cuda").to(dt), torch.randn(cs_shape, device="cuda").to(dt))
+           for _ in range(n_copies(nbytes, rotate))]
     F = torch.nn.functional
-    lib = lambda: F.cosine_similarity(x.unsqueeze(-2), c.unsqueeze(-3), dim=-1)  # noqa: E731
-    return dict(
-        ms=graph_ms(torch, lambda: ops.cosine_similarity(x, c)),
-        eager_ms=eager_ms(torch, lambda: ops.cosine_similarity(x, c)),
-        plain_ms=graph_ms(torch, lambda: ref.cosine_similarity(x, c)),
-        library_ms=graph_ms(torch, lib),
-        bound=bound(nbytes, flops),
-    )
+    lib = lambda x, c: F.cosine_similarity(x.unsqueeze(-2), c.unsqueeze(-3), dim=-1)  # noqa: E731
+    out = time_calls(torch, ops.cosine_similarity, ref.cosine_similarity, lib, ins, nbytes, flops,
+                     FP32_FLOPS if dt == torch.float32 else BF16_FLOPS)
+    del ins
+    torch.cuda.empty_cache()
+    return out
 
 
-def time_segment(torch, ops, ref, sig):
+def time_segment(torch, ops, ref, sig, rotate: bool = False):
+    """sig: (data shape, K, dtype, weighted); int64 ids in [0, K), as the
+    main path's callers pass them. The library call (unweighted, C = 1
+    only) is ``index_add_`` into an output of the data's dtype."""
     (ds, K, dt, weighted) = sig
-    data = torch.randn(ds, device="cuda").to(dt)
-    lead = ds[:-1]
-    ids = torch.randint(0, K, lead, device="cuda")
-    w = torch.rand(lead, device="cuda") if weighted else None
-    n_rows = int(((ids >= 0) & (ids < K)).sum())  # rows this data sums
     C, P, D = ds
-    el = data.element_size()
-    nbytes = C * P * D * el + C * P * 4 * (2 if weighted else 1) + C * K * D * 4
-    flops = n_rows * D * (2 if weighted else 1)
-    library_ms = None
+    lead = ds[:-1]
+    el = torch.empty((), dtype=dt).element_size()
+    nbytes = C * P * D * el + C * P * (8 + (4 if weighted else 0)) + C * K * D * 4
+    ins = []
+    for _ in range(n_copies(nbytes, rotate)):
+        ids = torch.randint(0, K, lead, device="cuda")
+        w = torch.rand(lead, device="cuda") if weighted else None
+        ins.append((torch.randn(ds, device="cuda").to(dt), ids, K, w))
+    flops = P * C * D * (2 if weighted else 1)  # every id is in [0, K): every row is summed
+    library = None
     if not weighted and C == 1:  # one call computes the unweighted sum
-        out = torch.zeros(K, D, device="cuda")
-        library_ms = graph_ms(torch, lambda: out.index_add_(0, ids[0], data[0]))
-    return dict(
-        ms=graph_ms(torch, lambda: ops.segment_aggregate(data, ids, K, w)),
-        eager_ms=eager_ms(torch, lambda: ops.segment_aggregate(data, ids, K, w)),
-        plain_ms=graph_ms(torch, lambda: ref.segment_aggregate(data, ids, K, w)),
-        library_ms=library_ms,
-        bound=bound(nbytes, flops),
-    )
+        outs = {id(i[0]): torch.zeros(K, D, dtype=dt, device="cuda") for i in ins}
+        library = lambda d, i, k, w: outs[id(d)].index_add_(0, i[0], d[0])  # noqa: E731
+    out = time_calls(torch, ops.segment_aggregate, ref.segment_aggregate, library, ins, nbytes, flops)
+    del ins
+    torch.cuda.empty_cache()
+    return out
+
+
+# rows phase 6 times besides the main run's own call shapes: the main
+# path's representative calls (stage 2 at 7 segments and its D = 1
+# denominator, the clustering cosine), stage 2 at 63 segments (32
+# cohorts), and benchmarks/kernels_micro.py's shapes, unweighted, C = 1,
+# rotated past the L2 (their bound is HBM bytes)
+MICRO = [(1024, 256, 8), (4096, 256, 16), (8192, 512, 32)]
+
+
+def fixed_rows(torch):
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = [("segment_aggregate", "stage2_k7", ((1, 125, 6922), 7, f32, True), False),
+            ("segment_aggregate", "stage2_denominator_d1", ((1, 125, 1), 7, f32, False), False),
+            ("segment_aggregate", "stage2_k63", ((1, 125, 6922), 63, f32, True), False),
+            ("cosine_similarity", "clustering_main", ((4, 64, 128), (4, 2, 128), f32), False)]
+    for (P, D, K) in MICRO:
+        for dname, dt in (("f32", f32), ("bf16", bf16)):
+            rows.append(("segment_aggregate", f"micro_{P}_{D}_{K}_{dname}", ((1, P, D), K, dt, False), True))
+            rows.append(("cosine_similarity", f"micro_{P}_{D}_{K}_{dname}", ((1, P, D), (1, K, D), dt), True))
+    return rows
+
+
+def time_fixed_rows(torch, ops, ref):
+    """Phase 6's fixed rows: [(kernel, key, sig, times)]."""
+    out = []
+    for name, key, sig, rotate in fixed_rows(torch):
+        timer = time_segment if name == "segment_aggregate" else time_cosine
+        t = timer(torch, ops, ref, sig, rotate)
+        out.append((name, key, sig, t))
+        print_row(name, f"{key} {sig}", t)
+    return out
+
+
+def print_row(name, what, t):
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.5f}"
+    print(f"[timing] {name} {what}: kernel {t['ms']:.5f} ms (eager {t['eager_ms']:.5f}), plain "
+          f"{t['plain_ms']:.5f}, library {lib}, bound {t['bound'][0]:.6f} ms ({t['bound'][1]}) = "
+          f"{100 * t['bound'][0] / t['ms']:.1f}% of bound", flush=True)
 
 
 def time_decode(torch, ops, ref, q, k, v, lens, inner: int = 20, reps: int = 25,
@@ -722,6 +823,31 @@ def decode_timing(torch, ops, ref):
     return rows
 
 
+def row_json(sig, t):
+    return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
+
+
+def kernel_timing_only(torch) -> int:
+    """``--kernel-timing``: build, then phase 6's fixed rows of the segment
+    and cosine kernels alone, and the rows as JSON (for timing two versions
+    of the package in turns, ``--src``)."""
+    from repro_torch.kernels import build, ops, ref
+
+    so = build.build()
+    if build.build_log:
+        print(build.build_log)
+    print(f"[build] {so}")
+    one = torch.zeros(1, device="cuda")
+    print(f"[timing] floor: one launch of a 1-element add_ {graph_ms(torch, lambda: one.add_(1)):.5f} ms "
+          f"(the same graph timing)")
+    rows = time_fixed_rows(torch, ops, ref)
+    print(json.dumps({"src": SRC, "kernel_timing": {
+        f"{name}/{key}": row_json(sig, t) for name, key, sig, t in rows}}))
+    print(smi())
+    return 0
+
+
 def decode_timing_only(torch) -> int:
     """``--decode-timing``: build, then phase 9 alone, and its rows as JSON
     (for timing two versions of the package in turns, ``--src``)."""
@@ -755,6 +881,8 @@ def main(argv) -> int:
     sys.path.insert(0, SRC)
     if "--decode-timing" in argv:
         return decode_timing_only(torch)
+    if "--kernel-timing" in argv:
+        return kernel_timing_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -885,16 +1013,20 @@ def main(argv) -> int:
         "segment_aggregate": ("src/repro_torch/kernels/csrc/segment_aggregate.cu",
                               "src/repro/kernels/segment_aggregate.py:46", time_segment),
     }
+    fixed = time_fixed_rows(torch, ops, ref)
     for name, (source, replaces, timer) in meta.items():
-        # the call with the most bytes represents the kernel in the report
+        # the call with the most bytes represents the kernel in the report;
+        # then the next largest, and the largest D = 1 call
         sigs = sorted(shapes[name], key=lambda s: -int(torch.Size(s[0]).numel()))
+        timed = sigs[:TIMED_SHAPES]
+        narrow = [s for s in sigs if s[0][-1] == 1]
+        if narrow and narrow[0] not in timed:
+            timed.append(narrow[0])
         rows = []
-        for sig in sigs[:TIMED_SHAPES]:
+        for sig in timed:
             t = timer(torch, ops, ref, sig)
             rows.append((sig, t))
-            print(f"[timing] {name} {sig} x{shapes[name][sig]} per main run: kernel "
-                  f"{t['ms']:.5f} ms (eager {t['eager_ms']:.5f}), plain {t['plain_ms']:.5f}, "
-                  f"library {t['library_ms']}, bound {t['bound'][0]:.6f} ms ({t['bound'][1]})")
+            print_row(name, f"{sig} x{shapes[name][sig]} per main run", t)
         sig, t = rows[0]
         report.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -902,6 +1034,7 @@ def main(argv) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "shape": repr(sig), "eager_ms": t["eager_ms"],
+            "rows": {key: row_json(sg, tt) for n, key, sg, tt in fixed if n == name},
         })
     # ------------------------------------- phase 9: decode attention timing
     gc.collect()

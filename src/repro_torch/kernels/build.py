@@ -10,6 +10,7 @@ builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +20,7 @@ from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cosine_sim.cu", "segment_aggregate.cu", "decode_attention.cu")
+HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libauxo_kernels.so"
@@ -46,7 +48,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update(s.encode())
         h.update((CSRC / s).read_bytes())
     return h.hexdigest()[:16]
@@ -99,9 +101,9 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.auxo_cosine_similarity.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, cf, vp]
+        lib.auxo_cosine_similarity.argtypes = [vp, vp, vp] + [ci] * 5 + [cf, ci, ci, vp]
         lib.auxo_cosine_similarity.restype = ci
-        lib.auxo_segment_aggregate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.auxo_segment_aggregate.argtypes = [vp] * 4 + [ci] * 7 + [vp]
         lib.auxo_segment_aggregate.restype = ci
         lib.auxo_decode_attention.argtypes = [vp] * 6 + [ci] * 5 + [cl] * 4 + [ci, ci, ci, vp]
         lib.auxo_decode_attention.restype = ci
@@ -109,3 +111,29 @@ def library() -> ctypes.CDLL:
         lib.auxo_decode_blocks_per_sm.restype = ci
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def function(name: str):
+    """One C entry point of the library, with its argtypes, resolved once."""
+    return getattr(library(), name)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index``, read once."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(fn, device, *args) -> int:
+    """Call C entry ``fn`` with ``args`` and PyTorch's current stream of
+    ``device`` last; the ``torch.cuda.device`` context is entered only when
+    ``device`` is not the current device."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -18,7 +18,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def cosine_similarity(x: torch.Tensor, c: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """x: (C, P, D), c: (C, K, D), same dtype (f32 or bf16), contiguous, on
-    one CUDA device -> (C, P, K) float32 sims. Launches on the current
+    one CUDA device -> (C, P, K) float32 sims. One launch on the current
     stream; the output is the only allocation."""
     global launches
     if x.device.type != "cuda" or c.device != x.device:
@@ -36,12 +36,13 @@ def cosine_similarity(x: torch.Tensor, c: torch.Tensor, eps: float = 1e-8) -> to
     out = torch.empty((C, P, K), dtype=torch.float32, device=x.device)
     if C == 0 or P == 0 or K == 0:
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = build.library().auxo_cosine_similarity(
-            x.data_ptr(), c.data_ptr(), out.data_ptr(), C, P, K, D,
-            _DTYPES[x.dtype], float(eps), stream,
-        )
+    el = x.element_size()
+    vec = x.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0 and (D * el) % 16 == 0
+    err = build.launch(
+        build.function("auxo_cosine_similarity"), x.device,
+        x.data_ptr(), c.data_ptr(), out.data_ptr(), C, P, K, D, _DTYPES[x.dtype], float(eps),
+        int(vec), build.sm_count(x.device.index),
+    )
     if err != 0:
         raise RuntimeError(f"cosine_similarity kernel launch failed: cudaError {err}")
     launches += 1

@@ -7,150 +7,485 @@
 //
 //   out[c, k, :] = sum_{p : ids[c, p] == k} w[c, p] * data[c, p, :]
 //
-// ids outside [0, K) contribute nothing; w == nullptr means weight 1.
+// ids outside [0, K) contribute nothing; w == nullptr means weight 1. Ids
+// are read as the caller gives them (int32 or int64), so a call is one
+// launch with no cast before it.
 //
 // What bounds it on the card: bytes. Every data element is read once and
 // takes one multiply and one add; K*D floats are written. A one-hot matmul
 // would spend K times the useful flops and buys nothing here.
 //
-// Design: every output element is reduced in one fixed order, so results
-// are bit-identical run to run (no float atomics; index_add_ on CUDA
-// reduces with atomics and is not). For K <= 8 a block owns 32 columns of
-// one cohort and splits their rows over 8 row groups (threadIdx.y): group
-// g sums rows p = g, g + 8, ... in index order with all K accumulators in
-// registers, so data is read exactly once and 8x more loads are in flight
-// than with one thread per column; the 8 partial sums of each (k, column)
-// are then added in group order through shared memory. A warp holds 32
-// consecutive columns of one row, so every row read is coalesced. For
-// larger K one thread owns one (c, k, d) and walks all rows. Ids and
-// weights are staged per P-tile in shared memory. The product is rounded
-// before the add (__fmul_rn, never contracted into an FMA), as the plain
-// version computes it. grid = (ceil(D / 32), C), or (ceil(D / 256), K, C).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design (one pass over the data for any K).
+//  - Wide rows (D >= 32): rows go in chunks of 256, one id per thread. A
+//    block-wide stable counting sort (8-bit digits, one pass for K < 256;
+//    each warp counts its rows by a ballot per digit, or a match past 32
+//    digits) lists each segment's rows in index order, so one accumulator
+//    per column serves every segment and the data is read once. A block
+//    owns a 128-byte column tile of one cohort (32 f32 or 64 bf16 columns).
+//    The chunk's rows come to shared memory by 16-byte cp.async from the
+//    16-byte boundary below each row's tile bytes (so any D takes
+//    full-width copies), issued while the ids load, so they fly during the
+//    sort, and the next chunk's while this one is summed (two ring slots).
+//    Then one warp sums one segment, lane l owning 4 bytes of each row: the
+//    segment's rows in index order, one after another.
+//    With one chunk a column tile (the main path) each sum is stored
+//    straight to the output; with more, chunks add into a (K, columns)
+//    tile in shared memory in chunk order (into the block's own output
+//    columns when K is too large for it).
+//    When the column tiles of all cohorts fill less than a wave and P spans
+//    several chunks, up to 8 blocks of a thread-block cluster split the
+//    chunks of a column tile (the wrapper's plan), and each block then adds
+//    one share of the segments over the cluster's tiles in rank order,
+//    read through distributed shared memory: still one launch.
+//  - Narrow rows (D < 32, the counts and denominators, D = 1): one block a
+//    cohort, one thread a row, no sort: per column and group of 8-32
+//    segments, each warp sums its rows per segment by an interleaved
+//    butterfly over its lanes (a row adds into its own segment's slot
+//    only), then the warps' sums are added in warp order, the chunks in
+//    chunk order.
+// Every output element has one owner and one fixed order (no float
+// atomics), so two launches are bit-identical. The product is rounded
+// before the add (__fmul_rn, __fadd_rn: never contracted into an FMA), as
+// the plain version computes it.
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+using namespace auxo;
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileP = 256;
-constexpr int kRegK = 8;
-constexpr int kCols = 32;               // columns per block (one warp wide)
-constexpr int kGroups = kThreads / kCols;  // row groups per block
-static_assert(kRegK <= kGroups, "one row group finishes each output row");
+constexpr int kChunk = kThreads;  // rows of a chunk: one id per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowBytes = 128;  // bytes of a row a block owns
+constexpr int kDigitBits = 8;
+constexpr int kNarrowD = 32;
+constexpr int kMaxSplit = 8;                 // blocks of a cluster
+constexpr size_t kAccBytes = 48 * 1024;      // the (K, columns) tile, at most
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+struct SortSmem {
+  int cnt[(1 << kDigitBits) * kWarps];  // per (digit, warp) counts, digit-major
+  int wtot[kWarps];
+  int key[kChunk];  // sorted segment of each position (K = dropped)
+  int row[kChunk];  // chunk row of each position
+};
 
-// Stage ids/weights of rows [p0, p0 + tp) into shared memory.
-__device__ __forceinline__ void stage(int* sid, float* sw, const int* ib,
-                                      const float* wb, int p0, int tp, int tid) {
-  __syncthreads();  // the previous tile is consumed
-  for (int i = tid; i < tp; i += kThreads) {
-    sid[i] = ib[p0 + i];
-    sw[i] = wb ? wb[p0 + i] : 1.f;
+__device__ __forceinline__ int block_exclusive_scan(int v, int* wtot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += t;
   }
+  if (lane == 31) wtot[warp] = inc;
   __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += wtot[w];
+  __syncthreads();  // wtot is reused by the next scan
+  return before + inc - v;
 }
 
+// Counts each (digit, warp) pair; returns the thread's rank among the equal
+// digits of its warp (lane order). Up to 32 digits: one ballot per digit,
+// so every counter is written and none needs zeroing; more: the counters
+// are zeroed and the lowest lane of each set of equal digits writes its
+// count.
+__device__ __forceinline__ int count_digits(int digit, int nb, int* cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  if (nb <= 32) {
+    unsigned mine = 0;
+    int c = 0;
+    for (int j = 0; j < nb; ++j) {
+      const unsigned b = __ballot_sync(0xffffffffu, digit == j);
+      if (lane == j) c = __popc(b);
+      if (digit == j) mine = b;
+    }
+    if (lane < nb) cnt[lane * kWarps + warp] = c;
+    return __popc(mine & below);
+  }
+  for (int i = threadIdx.x; i < nb * kWarps; i += kThreads) cnt[i] = 0;
+  __syncthreads();
+  const unsigned peers = __match_any_sync(0xffffffffu, digit);
+  const int rank = __popc(peers & below);
+  if (rank == 0) cnt[digit * kWarps + warp] = __popc(peers);
+  return rank;
+}
+
+// Exclusive scan of the n counters in place: one warp when they are few,
+// else the block (every thread calls; n is a power of two).
+__device__ void scan_counts(int* cnt, int n, int* wtot) {
+  const int tid = threadIdx.x;
+  if (n <= 32 * kWarps) {
+    if (tid >= 32) return;
+    const int per = n > 32 ? n / 32 : 1, first = tid * per;
+    int sum = 0;
+    if (first < n)
+      for (int j = 0; j < per; ++j) sum += cnt[first + j];
+    int inc = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, inc, o);
+      if (tid >= o) inc += t;
+    }
+    int off = inc - sum;
+    if (first < n)
+      for (int j = 0; j < per; ++j) {
+        const int c = cnt[first + j];
+        cnt[first + j] = off;
+        off += c;
+      }
+    return;
+  }
+  const int per = n / kThreads, first = tid * per;
+  int sum = 0;
+  for (int j = 0; j < per; ++j) sum += cnt[first + j];
+  int off = block_exclusive_scan(sum, wtot);
+  for (int j = 0; j < per; ++j) {
+    const int c = cnt[first + j];
+    cnt[first + j] = off;
+    off += c;
+  }
+}
+
+// One stable counting-sort pass of the block's (key, row) pairs by key bits
+// [shift, shift + bits): thread t holds the t-th pair before and after
+// (after the last pass, only s.key / s.row do, visible after a barrier).
+// Equal digits keep their order: by lane within a warp, by warp across.
+__device__ void sort_pass(int& key, int& row, int shift, int bits, bool last, SortSmem& s) {
+  const int tid = threadIdx.x;
+  const int nb = 1 << bits;
+  const int digit = (key >> shift) & (nb - 1);
+  const int rank = count_digits(digit, nb, s.cnt);
+  __syncthreads();
+  scan_counts(s.cnt, nb * kWarps, s.wtot);
+  __syncthreads();
+  const int pos = s.cnt[digit * kWarps + (tid >> 5)] + rank;
+  s.key[pos] = key;
+  s.row[pos] = row;
+  if (!last) {
+    __syncthreads();
+    key = s.key[tid];
+    row = s.row[tid];
+  }
+}
+
+// Sorts the chunk's rows by segment key (K = dropped) into s.key / s.row;
+// they are read after the caller's next barrier.
+__device__ void sort_chunk(int key, int key_bits, SortSmem& s) {
+  int row = threadIdx.x;
+  for (int shift = 0; shift < key_bits; shift += kDigitBits)
+    sort_pass(key, row, shift, min(kDigitBits, key_bits - shift), shift + kDigitBits >= key_bits, s);
+}
+
+__device__ __forceinline__ int lower_bound(const int* a, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// First sorted position of segment s (s = K: the count of valid rows). One
+// pass leaves the bucket starts in the counters; more passes search.
+__device__ __forceinline__ int seg_start(const SortSmem& ss, int s, int key_bits) {
+  return key_bits <= kDigitBits ? ss.cnt[s * kWarps] : lower_bound(ss.key, kChunk, s);
+}
+
+template <typename I>
+__device__ __forceinline__ int seg_key(const I* ib, int p, int P, int K) {
+  if (p >= P) return K;
+  const I v = ib[p];
+  return (v >= 0 && v < (I)K) ? (int)v : K;
+}
+
+// ------------------------------------------------------------ wide rows
+constexpr int kSlot = kRowBytes + 16;  // a staged row: its 128 bytes from a 16-byte boundary
+
+// Where a row's tile bytes start within its slot: their offset from the
+// 16-byte boundary below them.
 template <typename T>
+__device__ __forceinline__ int row_shift(const T* row, int col0) {
+  return (int)(reinterpret_cast<uintptr_t>(row + col0) & 15);
+}
+
+// Copy rows [0, rows) of the block's column tile (db points at the chunk's
+// first row) into `ring`: row r's bytes [col0, col0 + 128) (fewer past D)
+// land in slot r from byte row_shift on, so every copy is a full 16-byte
+// cp.async from an aligned address, whatever D is; a copy stops at the
+// row's last needed byte, so nothing past the tensor's end is read.
+template <typename T>
+__device__ void stage_tile(unsigned char* ring, const T* db, int rows, int D, int col0) {
+  constexpr int kPieces = kSlot / 16;
+  const int bytes = min(kRowBytes, (D - col0) * (int)sizeof(T));
+  for (int i = threadIdx.x; i < rows * kPieces; i += kThreads) {
+    const int r = i / kPieces, j = i % kPieces;
+    const uintptr_t start = reinterpret_cast<uintptr_t>(db + (size_t)r * D + col0);
+    const uintptr_t g = (start & ~(uintptr_t)15) + 16 * j;
+    const long long need = (long long)(start + bytes) - (long long)g;  // bytes wanted from g on
+    if (need > 0)
+      cp_async<16>(ring + r * kSlot + 16 * j, reinterpret_cast<const void*>(g), (int)min(16LL, need));
+  }
+}
+
+// A lane's 4 bytes of a staged row as floats: one f32 or two bf16.
+__device__ __forceinline__ void load_lane(const unsigned char* p, float (&v)[1]) {
+  v[0] = *reinterpret_cast<const float*>(p);
+}
+__device__ __forceinline__ void load_lane(const unsigned char* p, float (&v)[2]) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);  // 2-byte aligned
+  v[0] = __uint_as_float((unsigned)h[0] << 16);
+  v[1] = __uint_as_float((unsigned)h[1] << 16);
+}
+
+struct WideSmem {
+  SortSmem sort;
+  float w[kChunk];             // weight of each chunk row
+  int roff[kChunk];            // sorted position: its row's first tile byte in the slot
+  float ws[kChunk];            // sorted position: its row's weight
+};
+
+// grid (column tiles, slices, C), clusters of (1, slices, 1). A block owns
+// a 128-byte column tile; lane l of a warp owns its bytes [4l, 4l + 4)
+// (one f32 or two bf16 columns), and a warp sums one segment. Dynamic
+// shared memory: WideSmem, ring_slots tiles of ring_rows staged rows, then
+// the (K, columns) accumulator when acc_in_smem (else the block stores
+// into, or adds into, its own columns of the output).
+template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads)
-seg_agg_regs(const T* __restrict__ data, const int* __restrict__ ids,
-             const float* __restrict__ w, float* __restrict__ out, int P, int K,
-             int D) {
-  __shared__ int sid[kTileP];
-  __shared__ float sw[kTileP];
-  __shared__ float part[kGroups][kRegK][kCols];
-  const int cz = blockIdx.y;
-  const int col = threadIdx.x;    // 0..31
-  const int grp = threadIdx.y;    // 0..7
-  const int tid = grp * kCols + col;
-  const int d = blockIdx.x * kCols + col;
+seg_wide(const T* __restrict__ data, const I* __restrict__ ids, const float* __restrict__ w,
+         float* __restrict__ out, int P, int K, int D, int key_bits, int rows_per_split,
+         int ring_rows, int ring_slots, bool acc_in_smem) {
+  constexpr int V = 4 / (int)sizeof(T);
+  constexpr int kCols = kRowBytes / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  WideSmem& sm = *reinterpret_cast<WideSmem*>(smem);
+  unsigned char* ring = smem + sizeof(WideSmem);
+  const size_t slot_bytes = (size_t)ring_rows * kSlot;
+  float* tile = reinterpret_cast<float*>(ring + ring_slots * slot_bytes);  // (K, kCols)
+  const int tid = threadIdx.x;
+  const int col0 = blockIdx.x * kCols;
+  const int split = blockIdx.y, cz = blockIdx.z;
+  const int pb = split * rows_per_split, pe = min(P, pb + rows_per_split);
   const T* db = data + (size_t)cz * P * D;
-  const int* ib = ids + (size_t)cz * P;
+  const I* ib = ids + (size_t)cz * P;
   const float* wb = w ? w + (size_t)cz * P : nullptr;
-  float acc[kRegK];
+  float* ob = out + (size_t)cz * K * D;
+  const int nch = pe > pb ? (pe - pb + kChunk - 1) / kChunk : 0;
+  // the accumulator: K rows of `stride` floats, columns >= lim past D
+  const int lim = min(kCols, D - col0);
+  float* acc = acc_in_smem ? tile : ob + col0;
+  const int stride = acc_in_smem ? kCols : D;
+  if (nch == 0)  // no rows: zeros
+    for (int i = tid; i < K * kCols; i += kThreads)
+      if (i % kCols < lim) acc[(size_t)(i / kCols) * stride + i % kCols] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    const int p0 = pb + c * kChunk, tp = min(kChunk, pe - p0);
+    const int slot = c % ring_slots;
+    const unsigned char* tl = ring + slot * slot_bytes;
+    // the ids and weights go out first; the copies are issued while they fly
+    const I raw = tid < tp ? ib[p0 + tid] : (I)-1;
+    const float wt = (wb && tid < tp) ? wb[p0 + tid] : 1.f;
+    if (c == 0) stage_tile<T>(ring, db + (size_t)pb * D, tp, D, col0);
+    cp_commit();
+    if (c + 1 < nch) {  // the next chunk's copies fly during this chunk's sort and sums
+      const int p1 = p0 + kChunk;
+      stage_tile<T>(ring + ((c + 1) % ring_slots) * slot_bytes, db + (size_t)p1 * D,
+                    min(kChunk, pe - p1), D, col0);
+    }
+    cp_commit();
+    sm.w[tid] = wt;
+    sort_chunk(raw >= 0 && raw < (I)K ? (int)raw : K, key_bits, sm.sort);
+    __syncthreads();
+    const int n = seg_start(sm.sort, K, key_bits);
+    if (tid < n) {
+      const int r = sm.sort.row[tid];
+      sm.roff[tid] = r * kSlot + row_shift(db + (size_t)(p0 + r) * D, col0);
+      sm.ws[tid] = sm.w[r];
+    }
+    cp_wait<1>();  // this chunk's rows have landed (the next chunk's may still fly)
+    __syncthreads();
+    // one warp a segment, one lane 4 bytes of the tile: the segment's rows
+    // added in index order, then into the accumulator in chunk order
+    for (int i = tid; i < K * 32; i += kThreads) {
+      const int s = i >> 5, ln = i & 31;
+      const int st = seg_start(sm.sort, s, key_bits), en = seg_start(sm.sort, s + 1, key_bits);
+      float v[V], sum[V];
+      if (st == en) {
+        if (c > 0) continue;
 #pragma unroll
-  for (int k = 0; k < kRegK; ++k) acc[k] = 0.f;
-  for (int p0 = 0; p0 < P; p0 += kTileP) {
-    const int tp = min(kTileP, P - p0);
-    stage(sid, sw, ib, wb, p0, tp, tid);
-    if (d < D) {
-      for (int i = grp; i < tp; i += kGroups) {
-        const int s = sid[i];
-        if (s < 0 || s >= K) continue;
-        const float v = __fmul_rn(sw[i], to_f32(db[(size_t)(p0 + i) * D + d]));
+        for (int e = 0; e < V; ++e) sum[e] = 0.f;
+      } else {
+        load_lane(tl + sm.roff[st] + ln * 4, v);
 #pragma unroll
-        for (int k = 0; k < kRegK; ++k)
-          if (k == s) acc[k] += v;
+        for (int e = 0; e < V; ++e) sum[e] = __fmul_rn(sm.ws[st], v[e]);
+#pragma unroll 4
+        for (int q = st + 1; q < en; ++q) {
+          load_lane(tl + sm.roff[q] + ln * 4, v);
+          const float wq = sm.ws[q];
+#pragma unroll
+          for (int e = 0; e < V; ++e) sum[e] = __fadd_rn(sum[e], __fmul_rn(wq, v[e]));
+        }
+      }
+      float* o = acc + (size_t)s * stride + ln * V;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (ln * V + e < lim) o[e] = c == 0 ? sum[e] : __fadd_rn(o[e], sum[e]);
+    }
+    __syncthreads();  // the sort arrays, weights and this slot are reused
+  }
+
+  if (!acc_in_smem) return;
+  __syncthreads();
+  if (gridDim.y == 1) {
+    for (int i = tid; i < K * kCols; i += kThreads) {
+      const int s = i / kCols, c = i % kCols;
+      if (c < lim) ob[(size_t)s * D + col0 + c] = tile[i];
+    }
+    return;
+  }
+  // the cluster's slices of this column tile: this block adds segments
+  // [s0, s1) over the blocks' tiles in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int ns = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int s0 = r * K / ns, s1 = (r + 1) * K / ns;
+  for (int i = s0 * kCols + tid; i < s1 * kCols; i += kThreads) {
+    const int s = i / kCols, c = i % kCols;
+    if (c >= lim) continue;
+    float t[kMaxSplit];
+#pragma unroll
+    for (int q = 0; q < kMaxSplit; ++q) t[q] = q < ns ? *cluster.map_shared_rank(tile + i, q) : 0.f;
+    float v = t[0];
+#pragma unroll
+    for (int q = 1; q < kMaxSplit; ++q)
+      if (q < ns) v = __fadd_rn(v, t[q]);
+    ob[(size_t)s * D + col0 + c] = v;
+  }
+  cluster.sync();  // no block leaves while another reads its tile
+}
+
+// ----------------------------------------------------------- narrow rows
+// D < 32: one block a cohort, one thread a row, chunks of blockDim.x rows.
+// For each column and each group of NS segments, a warp's rows are summed
+// per segment by reduce_slots (a row adds into its own segment's slot
+// only), the warps' sums in warp order, the chunks in chunk order.
+template <typename T, typename I, int NS>
+__global__ void __launch_bounds__(kThreads)
+seg_narrow(const T* __restrict__ data, const I* __restrict__ ids, const float* __restrict__ w,
+           float* __restrict__ out, int P, int K, int D) {
+  constexpr int kLanesPerSlot = 32 / NS;
+  __shared__ float part[kWarps][NS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
+  const int cz = blockIdx.x;
+  const T* db = data + (size_t)cz * P * D;
+  const I* ib = ids + (size_t)cz * P;
+  const float* wb = w ? w + (size_t)cz * P : nullptr;
+  float* ob = out + (size_t)cz * K * D;
+  if (P == 0)
+    for (int i = tid; i < K * D; i += blockDim.x) ob[i] = 0.f;
+  for (int p0 = 0; p0 < P; p0 += blockDim.x) {
+    const int p = p0 + tid;
+    const bool row = p < P;  // every load below depends on this alone
+    const int key = seg_key(ib, p, P, K);
+    const float wt = (wb && row) ? wb[p] : 1.f;
+    for (int d = 0; d < D; ++d) {
+      const float x = row ? to_f32(db[(size_t)p * D + d]) : 0.f;
+      const float v = key < K ? __fmul_rn(wt, x) : 0.f;
+      for (int g0 = 0; g0 < K; g0 += NS) {
+        float a[NS];
+#pragma unroll
+        for (int i = 0; i < NS; ++i) a[i] = key == g0 + i ? v : 0.f;
+        const float tot = reduce_slots<NS>(a, lane);
+        if (lane % kLanesPerSlot == 0) part[warp][lane / kLanesPerSlot] = tot;
+        __syncthreads();
+        if (tid < NS && g0 + tid < K) {
+          float s = part[0][tid];
+          for (int u = 1; u < W; ++u) s = __fadd_rn(s, part[u][tid]);
+          float* o = ob + (size_t)(g0 + tid) * D + d;
+          *o = p0 == 0 ? s : __fadd_rn(*o, s);
+        }
+        __syncthreads();  // part is reused
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < kRegK; ++k) part[grp][k][col] = acc[k];
-  __syncthreads();
-  // row group g finishes output row k = g: the 8 partials in group order
-  if (d < D && grp < K) {
-    float s = 0.f;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) s += part[g][grp][col];
-    out[((size_t)cz * K + grp) * D + d] = s;
+}
+
+template <typename T, typename I>
+int launch(const T* x, const I* ids, const float* w, float* out, int C, int P, int K, int D,
+           int nsplit, cudaStream_t stream) {
+  const int key_bits = 32 - __builtin_clz((unsigned)K);  // keys 0..K, K = dropped
+  if (D < kNarrowD) {  // a block of whole warps, at most one row a thread
+    const int threads = P >= kThreads ? kThreads : max(32, (P + 31) / 32 * 32);
+    if (K <= 8)
+      seg_narrow<T, I, 8><<<C, threads, 0, stream>>>(x, ids, w, out, P, K, D);
+    else if (K <= 16)
+      seg_narrow<T, I, 16><<<C, threads, 0, stream>>>(x, ids, w, out, P, K, D);
+    else
+      seg_narrow<T, I, 32><<<C, threads, 0, stream>>>(x, ids, w, out, P, K, D);
+    return (int)cudaGetLastError();
   }
+  const int cols = kRowBytes / (int)sizeof(T);
+  const size_t acc_bytes = sizeof(float) * (size_t)K * cols;
+  const int nch = (P + kChunk - 1) / kChunk;
+  // one chunk a column tile: every sum is stored once, straight to the
+  // output; more: they gather in shared memory (if the tile fits)
+  const bool acc_in_smem = acc_bytes <= kAccBytes && nch > 1;
+  if (nsplit < 1 || nsplit > kMaxSplit || (nsplit > 1 && !acc_in_smem))
+    return (int)cudaErrorInvalidValue;
+  const int per = nch > 0 ? (nch + nsplit - 1) / nsplit : 1;  // chunks per slice
+  const int ring_rows = max(1, min(kChunk, P)), ring_slots = per > 1 ? 2 : 1;
+  const size_t smem = sizeof(WideSmem) + (size_t)ring_slots * ring_rows * kSlot +
+                      (acc_in_smem ? acc_bytes : 0);
+  if (int e = set_smem(seg_wide<T, I>, smem)) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + cols - 1) / cols, nsplit, C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = nsplit;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, seg_wide<T, I>, x, ids, w, out, P, K, D, key_bits,
+                                 per * kChunk, ring_rows, ring_slots, acc_in_smem);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-seg_agg_generic(const T* __restrict__ data, const int* __restrict__ ids,
-                const float* __restrict__ w, float* __restrict__ out, int P,
-                int K, int D) {
-  __shared__ int sid[kTileP];
-  __shared__ float sw[kTileP];
-  const int k = blockIdx.y;
-  const int cz = blockIdx.z;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const T* db = data + (size_t)cz * P * D;
-  const int* ib = ids + (size_t)cz * P;
-  const float* wb = w ? w + (size_t)cz * P : nullptr;
-  float acc = 0.f;
-  for (int p0 = 0; p0 < P; p0 += kTileP) {
-    const int tp = min(kTileP, P - p0);
-    stage(sid, sw, ib, wb, p0, tp, threadIdx.x);
-    if (d < D) {
-      for (int i = 0; i < tp; ++i)
-        if (sid[i] == k)
-          acc += __fmul_rn(sw[i], to_f32(db[(size_t)(p0 + i) * D + d]));
-    }
-  }
-  if (d < D) out[((size_t)cz * K + k) * D + d] = acc;
-}
-
-template <typename T>
-int launch(const void* data, const int* ids, const float* w, void* out, int C,
-           int P, int K, int D, cudaStream_t stream) {
+int by_ids(const void* data, const void* ids, int id_dtype, const float* w, float* out, int C,
+           int P, int K, int D, int nsplit, cudaStream_t s) {
   const T* x = static_cast<const T*>(data);
-  float* o = static_cast<float*>(out);
-  if (K <= kRegK) {
-    const dim3 grid((D + kCols - 1) / kCols, C), block(kCols, kGroups);
-    seg_agg_regs<T><<<grid, block, 0, stream>>>(x, ids, w, o, P, K, D);
-  } else {
-    const dim3 grid((D + kThreads - 1) / kThreads, K, C);
-    seg_agg_generic<T><<<grid, kThreads, 0, stream>>>(x, ids, w, o, P, K, D);
-  }
-  return (int)cudaGetLastError();
+  if (id_dtype == 0)
+    return launch<T, int>(x, static_cast<const int*>(ids), w, out, C, P, K, D, nsplit, s);
+  if (id_dtype == 1)
+    return launch<T, long long>(x, static_cast<const long long*>(ids), w, out, C, P, K, D,
+                                nsplit, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// data: (C, P, D), ids: (C, P) int32, w: (C, P) f32 or null, out: (C, K, D)
-// f32; all contiguous. dtype 0 = float32, 1 = bfloat16. Returns a
-// cudaError_t. P may be 0 (the kernel then writes zeros).
-extern "C" int auxo_segment_aggregate(const void* data, const void* ids,
-                                      const void* w, void* out, int C, int P,
-                                      int K, int D, int dtype, void* stream) {
+// data: (C, P, D), ids: (C, P) int32 (id_dtype 0) or int64 (1), w: (C, P)
+// f32 or null, out: (C, K, D) f32; all contiguous. dtype 0 = float32, 1 =
+// bfloat16. nsplit (1..8, D >= 32 and a (K, columns) tile of at most 48 KB
+// only) splits P over that many blocks of a cluster per column tile.
+// Returns a cudaError_t. P may be 0 (the kernel then writes zeros).
+extern "C" int auxo_segment_aggregate(const void* data, const void* ids, const void* w, void* out,
+                                      int C, int P, int K, int D, int dtype, int id_dtype,
+                                      int nsplit, void* stream) {
   if (C <= 0 || K <= 0 || D <= 0 || P < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* i = static_cast<const int*>(ids);
   const float* wf = static_cast<const float*>(w);
-  if (dtype == 0) return launch<float>(data, i, wf, out, C, P, K, D, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(data, i, wf, out, C, P, K, D, s);
+  float* o = static_cast<float*>(out);
+  if (dtype == 0) return by_ids<float>(data, ids, id_dtype, wf, o, C, P, K, D, nsplit, s);
+  if (dtype == 1) return by_ids<__nv_bfloat16>(data, ids, id_dtype, wf, o, C, P, K, D, nsplit, s);
   return (int)cudaErrorInvalidValue;
 }

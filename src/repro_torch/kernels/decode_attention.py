@@ -44,10 +44,7 @@ def plan_splits(B: int, Hkv: int, S: int, sms: int, per_sm: int) -> Tuple[int, i
     return (1, S) if n == 1 else (n, chunk)
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """The number of SMs of CUDA device ``index``, read once."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
+sm_count = build.sm_count  # the number of SMs of a CUDA device, read once
 
 
 @functools.lru_cache(maxsize=None)

@@ -64,9 +64,10 @@ def segment_aggregate(
         weights = None if weights is None else weights[None]
     if data.dtype not in _KERNEL_DTYPES:
         data = data.float()
-    ids = segment_ids.to(torch.int32).contiguous()
+    # the kernel reads int32 and int64 ids as they come: no cast launch
+    ids = segment_ids if segment_ids.dtype in (torch.int32, torch.int64) else segment_ids.long()
     w = None if weights is None else weights.to(torch.float32).contiguous()
-    out = _sa.segment_aggregate(data.contiguous(), ids, num_segments, w)
+    out = _sa.segment_aggregate(data.contiguous(), ids.contiguous(), num_segments, w)
     return out[0] if lead else out
 
 

@@ -6,6 +6,7 @@ version in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -16,6 +17,27 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ID_DTYPES = {torch.int32: 0, torch.int64: 1}
+CHUNK = 256  # rows a block sorts at once (kChunk in the source)
+TILE_BYTES = 128  # bytes of a row a block owns (kRowBytes)
+NARROW_D = 32  # rows narrower than this take the narrow kernel (kNarrowD)
+MAX_SPLIT = 8  # blocks of a cluster (kMaxSplit)
+ACC_BYTES = 48 * 1024  # the (K, columns) accumulator in shared memory, at most (kAccBytes)
+
+
+def plan_splits(C: int, P: int, D: int, K: int, element_size: int, sms: int) -> int:
+    """Blocks of a cluster over which each column tile's P chunks are
+    split: 1 unless the column tiles of all cohorts fill less than a wave
+    of ``sms`` SMs, P spans several chunks and the (K, columns) tile fits
+    in shared memory; then as many slices (of whole chunks, in order, at
+    most MAX_SPLIT) as bring the grid to two blocks per SM."""
+    nch = math.ceil(P / CHUNK)
+    tiles = C * math.ceil(D * element_size / TILE_BYTES)
+    acc = 4 * K * (TILE_BYTES // element_size)
+    if D < NARROW_D or nch <= 1 or tiles >= sms or acc > ACC_BYTES:
+        return 1
+    per = math.ceil(nch / min(nch, MAX_SPLIT, math.ceil(2 * sms / tiles)))
+    return math.ceil(nch / per)
 
 
 def segment_aggregate(
@@ -24,18 +46,18 @@ def segment_aggregate(
     num_segments: int,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """data: (C, P, D) f32/bf16, ids: (C, P) int32, weights: (C, P) f32 or
-    None (= 1), all contiguous on one CUDA device -> (C, K, D) float32.
-    Ids outside [0, K) are dropped. Launches on the current stream; the
-    output is the only allocation."""
+    """data: (C, P, D) f32/bf16, ids: (C, P) int32 or int64, weights: (C, P)
+    f32 or None (= 1), all contiguous on one CUDA device -> (C, K, D)
+    float32. Ids outside [0, K) are dropped. One launch on the current
+    stream; the output is the only allocation."""
     global launches
     dev = data.device
     if dev.type != "cuda" or ids.device != dev or (weights is not None and weights.device != dev):
         raise ValueError("segment kernel needs CUDA tensors on one device")
     if data.dtype not in _DTYPES:
         raise TypeError(f"segment kernel takes f32 or bf16 data, got {data.dtype}")
-    if ids.dtype != torch.int32 or (weights is not None and weights.dtype != torch.float32):
-        raise TypeError("segment kernel takes int32 ids and float32 weights")
+    if ids.dtype not in _ID_DTYPES or (weights is not None and weights.dtype != torch.float32):
+        raise TypeError(f"segment kernel takes int32/int64 ids and float32 weights, got {ids.dtype}")
     if data.dim() != 3 or ids.shape != data.shape[:2] or (
         weights is not None and weights.shape != ids.shape
     ):
@@ -47,18 +69,17 @@ def segment_aggregate(
         raise ValueError("segment kernel inputs must be contiguous")
     C, P, D = data.shape
     K = int(num_segments)
-    if max(C, P, K, D) >= 2**31:
-        raise ValueError("segment kernel takes 32-bit sizes")
+    if max(C, P, D) >= 2**31 or K >= 2**28:
+        raise ValueError("segment kernel takes 32-bit sizes and K below 2**28")
     out = torch.empty((C, K, D), dtype=torch.float32, device=dev)
     if C == 0 or K == 0 or D == 0:
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = build.library().auxo_segment_aggregate(
-            data.data_ptr(), ids.data_ptr(),
-            None if weights is None else weights.data_ptr(),
-            out.data_ptr(), C, P, K, D, _DTYPES[data.dtype], stream,
-        )
+    nsplit = plan_splits(C, P, D, K, data.element_size(), build.sm_count(dev.index))
+    err = build.launch(
+        build.function("auxo_segment_aggregate"), dev,
+        data.data_ptr(), ids.data_ptr(), None if weights is None else weights.data_ptr(),
+        out.data_ptr(), C, P, K, D, _DTYPES[data.dtype], _ID_DTYPES[ids.dtype], nsplit,
+    )
     if err != 0:
         raise RuntimeError(f"segment_aggregate kernel launch failed: cudaError {err}")
     launches += 1

@@ -1,0 +1,356 @@
+"""The summation orders of the port's segment-sum and cosine kernels
+(``kernels/csrc/segment_aggregate.cu``, ``kernels/csrc/cosine_sim.cu``),
+emulated in plain PyTorch on the CPU and held against the JAX package's
+Pallas kernels (interpret mode on the CPU, as the JAX kernel tests run
+them).
+
+The CUDA kernels cannot run here; these emulations repeat what each one
+adds to what, and in which order, so that a change of order that leaves
+the JAX tolerances is caught on the CPU:
+  - segment sum: a stable sort of each 256-row chunk by segment; each
+    segment's rows added in index order, one after another; chunks add in
+    chunk order, slices (P split over the blocks of a cluster) in slice
+    order; narrow rows (D < 32) sum each segment per warp by a butterfly
+    over the lanes, then the warps in order;
+  - cosine, K <= 8: per-lane partials of |x|^2, the dots and the
+    centroid norms over 16-byte vectors of D, reduced by a butterfly over
+    the 32 lanes (the interleaved reduction gives each slot that order);
+    K > 8 in f32: FMA over 4 k-groups of 8 columns of each 32-wide tile,
+    added in order, the norms in two halves of each tile; K >= 8 in bf16:
+    tensor-core k16 steps, k-group g taking step g of each 64-wide tile,
+    accumulated in f32, the norms in two halves of each tile.
+Tolerances are the JAX kernel tests' own: 2e-5 in f32; 2e-2 (cosine) and
+5e-2 (segment) in bf16.
+
+The tests marked ``cuda`` hold the kernels themselves against the plain
+versions on the card (they skip without one):
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_orders.py``.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import segment_aggregate as sa
+
+SHAPES = [(1, 128, 2), (7, 33, 3), (128, 512, 8), (200, 300, 5), (1024, 256, 16), (64, 64, 64)]
+SEG_SHAPES = SHAPES + [(125, 6922, 7), (125, 6922, 63), (125, 6922, 127), (125, 1, 7),
+                       (300, 1, 63), (37, 5, 4), (0, 128, 2), (0, 1, 3), (600, 40, 400)]
+COS_SHAPES = SHAPES + [(64, 128, 2), (33, 128, 1), (40, 130, 9), (300, 64, 7)]
+TOL_COS = {"f32": 2e-5, "bf16": 2e-2}
+TOL_SEG = {"f32": 2e-5, "bf16": 5e-2}
+TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+SMS = 132  # an H100's SMs: the plans below are the card's
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def jax_ops():
+    """(repro.kernels.ops, jax.numpy) of the JAX package."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+
+    return jops, jnp
+
+
+def _inputs(jnp, rng, shape, dname):
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dname]
+    jx = jnp.asarray(rng.standard_normal(shape).astype(np.float32), jdt)
+    return jx, torch.from_numpy(np.array(jx.astype(jnp.float32))).to(TORCH_DTYPES[dname])
+
+
+# ------------------------------------------------------------ segment sum
+CHUNK = sa.CHUNK
+
+
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (32 lanes) as the xor butterfly 16, 8, 4, 2, 1."""
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., torch.arange(32) ^ o]
+    return v[..., 0]
+
+
+def _narrow(x, key, w, K):
+    """D < 32: one thread a row, chunks of a block's rows; per warp a
+    butterfly over its lanes of each segment's masked values, the warps in
+    order, the chunks in order."""
+    P, D = x.shape
+    T = CHUNK if P >= CHUNK else max(32, math.ceil(P / 32) * 32)
+    out = torch.zeros(K, D)
+    for c0 in range(0, P, T):
+        n = min(P, c0 + T) - c0
+        v = torch.zeros(T, D)
+        k = torch.full((T,), K)
+        v[:n] = w[c0:c0 + n, None] * x[c0:c0 + n]  # rounded before the add
+        k[:n] = key[c0:c0 + n]
+        m = torch.where(k[:, None, None] == torch.arange(K)[None, :, None], v[:, None, :], 0.0)
+        per_warp = _butterfly(m.reshape(T // 32, 32, K, D).permute(0, 2, 3, 1))  # (warps, K, D)
+        tot = per_warp[0]
+        for u in range(1, T // 32):
+            tot = tot + per_warp[u]
+        out = tot if c0 == 0 else out + tot
+    return out
+
+
+def _chunk(x, key, w, K):
+    """One chunk of wide rows: {segment: its sum} in the kernel's order
+    (each segment's rows in index order, one after another)."""
+    sums = {}
+    for s in sorted(set(key[key < K].tolist())):
+        rows = torch.nonzero(key == s).flatten()
+        v = w[rows][:, None] * x[rows]  # rounded before the add, as __fmul_rn
+        tot = v[0]
+        for t in range(1, len(rows)):
+            tot = tot + v[t]
+        sums[s] = tot
+    return sums
+
+
+def emulate_segment(x, ids, K, w=None, sms=SMS):
+    """One cohort (x (P, D), ids (P,)) in the kernel's order, as f32."""
+    el = x.element_size()
+    x = x.float()
+    P, D = x.shape
+    w = torch.ones(P) if w is None else w.float()
+    key = torch.where((ids >= 0) & (ids < K), ids.long(), torch.full_like(ids.long(), K))
+    if D < sa.NARROW_D:
+        return _narrow(x, key, w, K)
+    nsplit = sa.plan_splits(1, P, D, K, el, sms)
+    nch = math.ceil(P / CHUNK)
+    per = math.ceil(nch / nsplit) if nch else 1
+    slices = []
+    for sl in range(nsplit):
+        out = torch.zeros(K, D)
+        for c in range(sl * per, min(nch, (sl + 1) * per)):
+            rows = slice(c * CHUNK, min(P, (c + 1) * CHUNK))
+            for s, v in _chunk(x[rows], key[rows], w[rows], K).items():
+                out[s] = v if c == sl * per else out[s] + v
+        slices.append(out)
+    tot = slices[0]
+    for s in slices[1:]:
+        tot = tot + s
+    return tot
+
+
+@pytest.mark.parametrize("shape", SEG_SHAPES)
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_order_matches_jax(jax_ops, shape, dname, weighted):
+    jops, jnp = jax_ops
+    P, D, K = shape
+    rng = np.random.default_rng(P * 7 + D + K)
+    jx, tx = _inputs(jnp, rng, (P, D), dname)
+    ids = rng.integers(-1, K + 1, P).astype(np.int32)  # -1 and K are dropped
+    w = rng.random(P).astype(np.float32) if weighted else None
+    if P:
+        want = np.asarray(
+            jops.segment_aggregate(jx, jnp.asarray(ids), K, None if w is None else jnp.asarray(w))
+        )
+    else:  # the JAX kernel takes no empty input; zero rows sum to zeros
+        want = np.zeros((K, D), np.float32)
+    got = emulate_segment(tx, torch.from_numpy(ids), K, None if w is None else torch.from_numpy(w))
+    tol = TOL_SEG[dname]
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("P, D, K, sms", [(1024, 256, 16, 132), (8192, 512, 32, 132),
+                                          (2000, 64, 5, 132), (700, 48, 3, 4)])
+def test_segment_split_order_matches_plain(P, D, K, sms):
+    """P split over blocks (slices added in slice order) against the plain version."""
+    assert sa.plan_splits(1, P, D, K, 4, sms) > 1
+    g = torch.Generator().manual_seed(P + D)
+    x = torch.randn(P, D, generator=g)
+    ids = torch.randint(-1, K + 1, (P,), generator=g)
+    w = torch.rand(P, generator=g)
+    torch.testing.assert_close(emulate_segment(x, ids, K, w, sms), ref.segment_aggregate(x, ids, K, w),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("C, P, D, K, el", [(1, 125, 6922, 7, 4), (1, 125, 1, 7, 4),
+                                            (4, 64, 128, 2, 4), (4, 64, 1, 2, 4),
+                                            (1, 125, 6922, 63, 2), (16, 100, 128, 2, 4)])
+def test_segment_main_path_takes_no_split(C, P, D, K, el):
+    """The main path's calls (stage 2, the clustering sums, counts and
+    dispersion) have one chunk of rows: one block per column tile."""
+    assert sa.plan_splits(C, P, D, K, el, SMS) == 1
+
+
+@pytest.mark.parametrize("K, el, split", [(32, 4, True), (384, 4, True), (385, 4, False),
+                                          (192, 2, True), (193, 2, False)])
+def test_segment_split_needs_the_tile_in_shared_memory(K, el, split):
+    """Slices of a cluster add their (K, columns) tiles through shared
+    memory: a tile over 48 KB keeps one block per column tile."""
+    assert (sa.plan_splits(1, 8192, 512, K, el, SMS) > 1) == split
+
+
+def test_segment_plan_covers_every_chunk():
+    for P in (257, 1000, 4096, 8192, 100000):
+        for D in (32, 256, 512):
+            n = sa.plan_splits(1, P, D, 32, 4, SMS)
+            nch = math.ceil(P / CHUNK)
+            per = math.ceil(nch / n)
+            assert 1 <= n <= min(nch, sa.MAX_SPLIT) and (n - 1) * per < nch <= n * per
+
+
+@pytest.mark.parametrize("shape", [(80, 130, 8), (300, 1, 63), (125, 6922, 63), (600, 40, 3)])
+def test_segment_invariants(shape):
+    """The JAX kernel tests' invariants on the kernel's order: mass is
+    conserved, and zero weights give zeros."""
+    P, D, K = shape
+    g = torch.Generator().manual_seed(P)
+    x = torch.randn(P, D, generator=g)
+    ids = torch.randint(0, K, (P,), generator=g)
+    np.testing.assert_allclose(emulate_segment(x, ids, K).sum(0).numpy(), x.sum(0).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert not emulate_segment(x, ids, K, torch.zeros(P)).any()
+
+
+# ------------------------------------------------------------ cosine
+def _lane_sums(prod: torch.Tensor, vec: int) -> torch.Tensor:
+    """prod (..., D): each lane's sequential sum of its elements (element d
+    belongs to lane (d // vec) % 32), in increasing d -> (..., 32)."""
+    D = prod.shape[-1]
+    Dp = math.ceil(D / (32 * vec)) * 32 * vec
+    p = torch.nn.functional.pad(prod, (0, Dp - D)).reshape(*prod.shape[:-1], Dp // (32 * vec), 32, vec)
+    acc = torch.zeros(*prod.shape[:-1], 32)
+    for j in range(p.shape[-3]):
+        for e in range(vec):
+            acc = acc + p[..., j, :, e]
+    return acc
+
+
+def _seq(prod: torch.Tensor, idx) -> torch.Tensor:
+    """Sequential sum over the positions idx of the last axis."""
+    acc = torch.zeros(prod.shape[:-1])
+    for d in idx:
+        acc = acc + prod[..., d]
+    return acc
+
+
+def emulate_cosine(x, c, eps=1e-8):
+    """One cohort (x (P, D), c (K, D)) in the kernel's order, as f32."""
+    bf16 = x.dtype == torch.bfloat16
+    P, D = x.shape
+    K = c.shape[0]
+    x, c = x.float(), c.float()
+    el = 2 if bf16 else 4
+    if K < 8 or (K == 8 and not bf16):  # rows kernel
+        vec = 16 // el if (D * el) % 16 == 0 else 1
+        x2 = _butterfly(_lane_sums(x * x, vec))
+        dots = _butterfly(_lane_sums(x[:, None, :] * c[None], vec))
+        c2 = _butterfly(_lane_sums(c * c, vec))  # the same lanes as x
+        return dots / torch.clamp(torch.sqrt(x2[:, None] * c2[None]), min=eps)
+    # four k-groups split each D tile; each sums its share over the tiles
+    # in order, and the four sums are added in k-group order
+    if not bf16:  # f32 register tile, 8 columns of each 32-wide tile a k-group
+        tile = 32
+        prod = x[:, None, :] * c[None]
+        parts = [_seq(prod, [d for d in range(D) if (d % 32) // 8 == g]) for g in range(4)]
+    else:  # tensor cores: k16 step g of each 64-wide tile, accumulated in f32
+        tile = 64
+        prod = torch.nn.functional.pad(x[:, None, :] * c[None], (0, (-D) % 16))
+        blocks = prod.reshape(P, K, -1, 16).sum(-1)
+        parts = [_seq(blocks, range(g, blocks.shape[-1], 4)) for g in range(4)]
+    dots = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+
+    def split_sum(v):  # the two halves of each tile, each sequential over tiles, then added
+        halves = [_seq(v, [d for d in range(D) if (d % tile) < tile // 2]),
+                  _seq(v, [d for d in range(D) if (d % tile) >= tile // 2])]
+        return halves[0] + halves[1]
+
+    x2, c2 = split_sum(x * x), split_sum(c * c)
+    return dots / torch.clamp(torch.sqrt(x2[:, None] * c2[None]), min=eps)
+
+
+@pytest.mark.parametrize("shape", COS_SHAPES)
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_cosine_order_matches_jax(jax_ops, shape, dname):
+    jops, jnp = jax_ops
+    P, D, K = shape
+    rng = np.random.default_rng(P * 1000 + D + K)
+    jx, tx = _inputs(jnp, rng, (P, D), dname)
+    jc, tc = _inputs(jnp, rng, (K, D), dname)
+    if P > 1:  # a zero row gives similarity 0
+        tx[0] = 0
+        jx = jx.at[0].set(0)
+    want = np.asarray(jops.cosine_similarity(jx, jc))
+    got = emulate_cosine(tx, tc)
+    tol = TOL_COS[dname]
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    if P > 1:
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("shape", [(97, 200, 9), (64, 128, 2), (33, 64, 32), (50, 7, 5)])
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_cosine_invariants(shape, dname):
+    """The JAX kernel tests' invariants on the kernel's order: values in
+    [-1, 1], unchanged when x is scaled (3.7 keeps bf16 inputs exact only
+    in f32, so bf16 scales by 4)."""
+    P, D, K = shape
+    g = torch.Generator().manual_seed(D)
+    dt = TORCH_DTYPES[dname]
+    x, c = torch.randn(P, D, generator=g).to(dt), torch.randn(K, D, generator=g).to(dt)
+    got = emulate_cosine(x, c)
+    assert (got <= 1 + 1e-4).all() and (got >= -1 - 1e-4).all()
+    scale = 3.7 if dname == "f32" else 4.0
+    np.testing.assert_allclose(emulate_cosine((x.float() * scale).to(dt), c).numpy(), got.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------- on the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU run covers the kernels' orders")
+    return torch.device("cuda")
+
+
+CUDA_SHAPES = [(125, 6922, 7), (125, 6922, 63), (125, 6922, 127), (1024, 256, 8),
+               (4096, 256, 16), (8192, 512, 32), (300, 1, 63), (125, 1, 7), (300, 6922, 7),
+               (600, 40, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("id_dtype", [torch.int64, torch.int32])
+def test_cuda_kernels_match_plain_new_shapes(cuda, shape, dtype, id_dtype):
+    from repro_torch.kernels import cosine_sim
+
+    P, D, K = shape
+    g = torch.Generator(device=cuda).manual_seed(P + D + K)
+    x = torch.randn(2, P, D, generator=g, device=cuda).to(dtype)
+    c = torch.randn(2, K, D, generator=g, device=cuda).to(dtype)
+    ids = torch.randint(-1, K + 1, (2, P), generator=g, device=cuda)
+    w = torch.rand(2, P, generator=g, device=cuda)
+    n_cos, n_seg = cosine_sim.launches, sa.launches
+    tc, ts = (2e-5, 2e-5) if dtype == torch.float32 else (2e-2, 5e-2)
+    torch.testing.assert_close(ops.cosine_similarity(x, c), ref.cosine_similarity(x, c), rtol=tc, atol=tc)
+    for wt in (None, w):
+        got = ops.segment_aggregate(x, ids.to(id_dtype), K, wt)
+        torch.testing.assert_close(got, ref.segment_aggregate(x, ids, K, wt), rtol=ts, atol=ts)
+    assert cosine_sim.launches == n_cos + 1 and sa.launches == n_seg + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(125, 6922, 63), (8192, 512, 32), (300, 1, 63)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_bit_identical(cuda, shape, dtype):
+    P, D, K = shape
+    g = torch.Generator(device=cuda).manual_seed(K)
+    x = torch.randn(P, D, generator=g, device=cuda).to(dtype)
+    c = torch.randn(K, D, generator=g, device=cuda).to(dtype)
+    ids = torch.randint(0, K, (P,), generator=g, device=cuda)
+    w = torch.rand(P, generator=g, device=cuda)
+    assert torch.equal(ops.segment_aggregate(x, ids, K, w), ops.segment_aggregate(x, ids, K, w))
+    assert torch.equal(ops.cosine_similarity(x, c), ops.cosine_similarity(x, c))
