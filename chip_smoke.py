@@ -7,6 +7,7 @@
         # of the package under DIR (default ./src): time two versions in turns
     python3 chip_smoke.py --kernel-timing [--src DIR]  # build + phase 6's fixed
         # rows of the segment and cosine kernels alone, likewise
+    python3 chip_smoke.py --lm-train      # build + phase 10 alone
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -36,10 +37,23 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
   9. timing of decode attention at the main-path call (f32, bf16), at a
      32k cache of 8 sequences (full f32 and bf16, ragged bf16) and at the
      decode_32k batch (128 x 32k, bf16), beside its byte bound, the plain
-     version and ``F.scaled_dot_product_attention``.
+     version and ``F.scaled_dot_product_attention``;
+ 10. LM training (``repro_torch.launch.steps``), after phase 9 has freed its
+     memory: (a) 3 rounds of ``make_train_step`` on a reduced granite-3-2b on
+     the card and on the CPU, equal assignments and close state; (b)
+     granite-3-2b at full width and depth, float32, 2 clients x 2 sequences
+     of 512 tokens (``synth_corpus``), 3 rounds: s/round, loss, tokens/s,
+     the share of the FLOP bound, peak memory, the sketch's and every
+     aggregation call's time; every aggregation call on the segment kernel,
+     none on a plain version; (c) 2 ``make_central_train_step`` steps, a
+     prefill of 2 x 512 tokens and 8 served tokens, all finite; then the LM
+     path's segment calls held against the plain version and timed.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
+Memory plan of phase 10b: params, Yogi's m and v (30.4 GB), the two
+clients' deltas, one of them the working copy (20.3 GB), one SGD step's
+gradients (10.1 GB) and checkpointed activations (~1 GB): about 62-64 GB.
 The last three lines are a JSON kernel report, the card's name and power
 limit, and the JSON result line.
 Imports nothing of JAX or of the JAX package.
@@ -374,15 +388,16 @@ def rotating(fn, inputs):
     return call
 
 
-def time_calls(torch, kernel, plain, library, inputs, nbytes, flops, peak=FP32_FLOPS):
+def time_calls(torch, kernel, plain, library, inputs, nbytes, flops, peak=FP32_FLOPS,
+               inner: int = 20, reps: int = 25):
     """Kernel (graph and eager), plain version and library call on the same
     rotating inputs: each graph holds at least one call per input copy."""
-    inner = max(20, len(inputs))
+    inner = max(inner, len(inputs))
     return dict(
-        ms=graph_ms(torch, rotating(kernel, inputs), inner),
-        eager_ms=eager_ms(torch, rotating(kernel, inputs), inner),
-        plain_ms=graph_ms(torch, rotating(plain, inputs), inner),
-        library_ms=None if library is None else graph_ms(torch, rotating(library, inputs), inner),
+        ms=graph_ms(torch, rotating(kernel, inputs), inner, reps),
+        eager_ms=eager_ms(torch, rotating(kernel, inputs), inner, reps),
+        plain_ms=graph_ms(torch, rotating(plain, inputs), inner, reps),
+        library_ms=None if library is None else graph_ms(torch, rotating(library, inputs), inner, reps),
         bound=bound(nbytes, flops, peak),
     )
 
@@ -411,18 +426,22 @@ def time_cosine(torch, ops, ref, sig, rotate: bool = False):
     return out
 
 
-def time_segment(torch, ops, ref, sig, rotate: bool = False):
-    """sig: (data shape, K, dtype, weighted); int64 ids in [0, K), as the
-    main path's callers pass them. The library call (unweighted, C = 1
-    only) is ``index_add_`` into an output of the data's dtype."""
+def time_segment(torch, ops, ref, sig, rotate: bool = False, id_dtype=None,
+                 inner: int = 20, reps: int = 25):
+    """sig: (data shape, K, dtype, weighted); ids in [0, K) of ``id_dtype``
+    (int64, as stage 2 passes them, unless given). The library call, where
+    one computes the function (C = 1), is ``index_add_`` into an output of
+    the data's dtype (unweighted) or ``w @ d`` (one weighted segment)."""
     (ds, K, dt, weighted) = sig
     C, P, D = ds
     lead = ds[:-1]
+    id_dtype = id_dtype or torch.int64
     el = torch.empty((), dtype=dt).element_size()
-    nbytes = C * P * D * el + C * P * (8 + (4 if weighted else 0)) + C * K * D * 4
+    id_el = torch.empty((), dtype=id_dtype).element_size()
+    nbytes = C * P * D * el + C * P * (id_el + (4 if weighted else 0)) + C * K * D * 4
     ins = []
     for _ in range(n_copies(nbytes, rotate)):
-        ids = torch.randint(0, K, lead, device="cuda")
+        ids = torch.randint(0, K, lead, device="cuda", dtype=id_dtype)
         w = torch.rand(lead, device="cuda") if weighted else None
         ins.append((torch.randn(ds, device="cuda").to(dt), ids, K, w))
     flops = P * C * D * (2 if weighted else 1)  # every id is in [0, K): every row is summed
@@ -430,7 +449,10 @@ def time_segment(torch, ops, ref, sig, rotate: bool = False):
     if not weighted and C == 1:  # one call computes the unweighted sum
         outs = {id(i[0]): torch.zeros(K, D, dtype=dt, device="cuda") for i in ins}
         library = lambda d, i, k, w: outs[id(d)].index_add_(0, i[0], d[0])  # noqa: E731
-    out = time_calls(torch, ops.segment_aggregate, ref.segment_aggregate, library, ins, nbytes, flops)
+    elif weighted and K == 1 and C == 1:
+        library = lambda d, i, k, w: torch.matmul(w[0], d[0])  # noqa: E731
+    out = time_calls(torch, ops.segment_aggregate, ref.segment_aggregate, library, ins, nbytes, flops,
+                     inner=inner, reps=reps)
     del ins
     torch.cuda.empty_cache()
     return out
@@ -707,14 +729,27 @@ def serving_phase(torch, np, eng):
                 cold=cold.size, slots=sorted(set(slots.tolist())))
 
 
-def record(mod, name, sig, log):
-    """Log each call's shape signature (the wrapper's own count is untouched)."""
+def record(mod, name, sig, log, torch=None):
+    """Log each call of ``mod.name`` by ``sig(*args)`` (the wrapper's own
+    count is untouched): into a dict, a count per signature; into a list,
+    the signatures in call order, or with ``torch`` (signature, start, end)
+    CUDA events around each call (no synchronisation). Returns the undo."""
     orig = getattr(mod, name)
 
     def rec(*a, **k):
         key = sig(*a, **k)
-        log[key] = log.get(key, 0) + 1
-        return orig(*a, **k)
+        if isinstance(log, dict):
+            log[key] = log.get(key, 0) + 1
+            return orig(*a, **k)
+        if torch is None:
+            log.append(key)
+            return orig(*a, **k)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = orig(*a, **k)
+        t1.record()
+        log.append((key, t0, t1))
+        return out
 
     setattr(mod, name, rec)
     return lambda: setattr(mod, name, orig)
@@ -823,6 +858,324 @@ def decode_timing(torch, ops, ref):
     return rows
 
 
+# ----------------------------------------------------- phase 10: LM training
+LM_ROUNDS = 3
+LM_C, LM_M, LM_S = 2, 2, 512  # clients, sequences per client, tokens per sequence
+LM_TOL = dict(rtol=1e-4, atol=1e-5)  # plus twice float32's own error on the leaf (10a)
+
+
+def synth_corpus(n_clients, m, seq, vocab, n_groups=2, phrase=64, noise=0.05):
+    """examples/train_lm_federated.py's corpus: each group repeats its own
+    random phrase and clients add token-substitution noise; client c is in
+    group c % n_groups. numpy, seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    phrases = [rng.integers(0, vocab, size=phrase) for _ in range(n_groups)]
+    toks = np.zeros((n_clients, m, seq), np.int32)
+    groups = np.arange(n_clients) % n_groups
+    for c in range(n_clients):
+        base = phrases[groups[c]]
+        for j in range(m):
+            off = rng.integers(0, phrase)
+            row = np.tile(base, seq // phrase + 2)[off: off + seq].copy()
+            flip = rng.random(seq) < noise
+            row[flip] = rng.integers(0, vocab, size=flip.sum())
+            toks[c, j] = row
+    return toks, groups
+
+
+def forbid_cuda_in_plain(torch, ref):
+    """The plain kernel versions raise on a CUDA tensor while this is in
+    force (a CUDA tensor must reach the kernels only); returns the undo."""
+    names = ("segment_aggregate", "cosine_similarity", "decode_attention")
+    origs = {n: getattr(ref, n) for n in names}
+
+    def guard(name, fn):
+        def g(*a, **k):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in list(a) + list(k.values())):
+                raise AssertionError(f"a CUDA tensor reached the plain {name}")
+            return fn(*a, **k)
+        return g
+
+    for n, f in origs.items():
+        setattr(ref, n, guard(n, f))
+    return lambda: [setattr(ref, n, f) for n, f in origs.items()]
+
+
+def lm_small_reference(torch, np):
+    """Phase 10a: 3 rounds of make_train_step on a reduced granite-3-2b on
+    the card and on the CPU from the same params and tokens."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import leaves_with_path, tree_map
+
+    cfg = reduce_config(get_config(GRANITE)).replace(attn_qchunk=8, ce_chunk=8)
+    sc = steps.StepConfig(local_steps=2, client_lr=0.05, server_lr=0.05, d_sketch=32)
+    init = build_model(cfg).init(rnd.key(0), device="cpu")
+    rng = np.random.default_rng(0)
+    toks = [rng.integers(0, cfg.vocab, (4, 4, 16)).astype(np.int32) for _ in range(LM_ROUNDS)]
+    runs = {}
+    # the card, the CPU, and the CPU in float64: float32's own error on each
+    # leaf, which the card-vs-CPU comparison allows twice over
+    for run, dev, dt in (("cpu", "cpu", torch.float32), ("cuda", "cuda", torch.float32),
+                         ("cpu64", "cpu", torch.float64)):
+        ids, counts = [], []  # every segment call's (K, D, ids): the assignments at K 2
+        undo = record(steps.kops, "segment_aggregate",
+                      lambda d, i, k, w=None: (int(k), d.shape[-1], i.cpu()), ids)
+        params = tree_map(lambda a: a.to(dev, dt, copy=True), init)
+        opt, clust = steps.yogi_init(params), steps.clustering_init(2, 32, device=dev)
+        step = steps.make_train_step(build_model(cfg.replace(dtype=dt)), sc)
+        sa.launches = 0
+        for t in toks:
+            params, opt, clust, met = step(params, opt, clust, {"tokens": torch.from_numpy(t).to(dev)})
+            counts.append(met["cluster_counts"].cpu())
+        undo()
+        runs[run] = (params, opt, clust, ids, counts, sa.launches)
+    (pg, og, cg, ig, ng, launches), (pc, oc, cc, ic, nc, _) = runs["cuda"], runs["cpu"]
+    if launches != LM_ROUNDS * (2 + len(leaves_with_path(pg))) or len(ig) != launches:
+        raise AssertionError(f"lm 10a: {launches} segment kernel launches, {len(ig)} calls")
+    ag = [i[0] for k, d, i in ig if k > 1 and d > 1]
+    if ([(k, d) for k, d, _ in ig] != [(k, d) for k, d, _ in ic]
+            or not all(torch.equal(a[2], b[2]) for a, b in zip(ig, ic))
+            or not all(torch.equal(a, b) for a, b in zip(ng, nc))):
+        raise AssertionError(f"lm 10a: assignments differ card {ag} vs CPU "
+                             f"{[i[0] for k, d, i in ic if k > 1 and d > 1]}")
+    errs, floors = {}, {}
+    for i, name in enumerate(("params", "opt", "clust")):
+        cpu = dict(leaves_with_path(runs["cpu"][i]))
+        f64 = dict(leaves_with_path(runs["cpu64"][i]))
+        for k, v in leaves_with_path(runs["cuda"][i]):
+            err = (v.cpu() - cpu[k]).abs().max().item()
+            floor = (cpu[k].double() - f64[k].double()).abs().max().item()
+            errs[name] = max(errs.get(name, 0.0), err)
+            floors[name] = max(floors.get(name, 0.0), floor)
+            if not torch.allclose(v.cpu(), cpu[k], rtol=LM_TOL["rtol"], atol=LM_TOL["atol"] + 2 * floor):
+                raise AssertionError(f"lm 10a: {name} {k} differs card vs CPU by {err} (float32's "
+                                     f"own error there: {floor})")
+    return dict(errs=errs, floors=floors, launches=launches, assign=[a.tolist() for a in ag],
+                counts=[c.tolist() for c in ng])
+
+
+def lm_train_phase(torch):
+    """Phases 10b and 10c: granite-3-2b at full width and depth (float32),
+    3 federated rounds of make_train_step with 2 clients, then 2 centralized
+    steps, a prefill and 8 served tokens."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.core.sketch import GradientSketcher
+    from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import leaves
+
+    model = build_model(get_config(GRANITE))
+    cfg = model.cfg
+    n_params = model.param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(rnd.key(0), device="cuda")
+    opt = steps.yogi_init(params)
+    clust = steps.clustering_init(2, 128, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sc = steps.StepConfig(local_steps=2, d_sketch=128)
+    step = steps.make_train_step(model, sc)
+    toks_np, groups = synth_corpus(LM_C, LM_M, LM_S, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks_np).cuda()}
+    sk_log, agg_log = [], []
+    undo = [record(GradientSketcher, "batch", lambda self, u: "sketch", sk_log, torch),
+            record(steps.kops, "segment_aggregate",
+                   lambda d, i, k, w=None: (tuple(d.shape), int(k), w is not None), agg_log, torch)]
+    secs, losses, counts = [], [], []
+    sa.launches = 0
+    try:
+        for _ in range(LM_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, clust, met = step(params, opt, clust, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+            counts.append(met["cluster_counts"].tolist())
+    finally:
+        for u in undo:
+            u()
+    launches = sa.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaves = len(leaves(params))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"lm 10b: non-finite loss {losses}")
+    if not all(bool(torch.isfinite(a).all()) for a in leaves(params)):
+        raise AssertionError("lm 10b: non-finite params")
+    if any(sum(c) != LM_C for c in counts):
+        raise AssertionError(f"lm 10b: cluster counts {counts} do not sum to {LM_C}")
+    if launches != LM_ROUNDS * (2 + n_leaves) or len(agg_log) != launches:
+        raise AssertionError(f"lm 10b: {launches} segment kernel launches and {len(agg_log)} "
+                             f"calls, want {LM_ROUNDS} x (2 + {n_leaves})")
+    sk_ms = [a.elapsed_time(b) for _, a, b in sk_log]
+    agg = {}
+    for sig, a, b in agg_log:
+        agg.setdefault(sig, []).append(a.elapsed_time(b))
+    tokens = LM_C * LM_M * LM_S
+    flops = 8 * n_params * tokens  # forward, backward and the forward recompute
+    # the sketch reads each client's last block once and multiplies it by
+    # (block, 128) matrices it draws (7.8G draws a round, not counted here)
+    n_last = sum(a[-1].numel() for a in leaves(params["backbone"])) + cfg.d_model
+    sk_bound = bound(LM_C * n_last * 4, 2 * LM_C * n_last * sc.d_sketch)
+
+    # ------------------------------------------------------------- 10c
+    central = steps.make_central_train_step(model, sc, n_clients=4)
+    ctoks = torch.from_numpy(synth_corpus(4, 1, LM_S, cfg.vocab)[0].reshape(4, LM_S)).cuda()
+    cclust = steps.clustering_init(2, 128, device="cuda")
+    closs = []
+    for _ in range(2):
+        params, opt, cclust, cmet = central(params, opt, cclust, {"tokens": ctoks})
+        closs.append(float(cmet["loss"]))
+    if not all(math.isfinite(v) for v in closs) or not all(bool(torch.isfinite(a).all()) for a in leaves(params)):
+        raise AssertionError(f"lm 10c: central steps not finite (loss {closs})")
+    prompt = batch["tokens"][:, 0]  # (2, 512): each client's first sequence
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = steps.make_prefill_step(model, sc)(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if tuple(last.shape) != (2, 1, cfg.vocab) or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"lm 10c: prefill logits {tuple(last.shape)} not finite")
+    serve = steps.make_serve_step(model, sc)
+    cache = model.init_cache(2, 1024, device="cuda")
+    cur = prompt[:, :1]
+    served = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        logits, cache = serve(params, cache, {"tokens": cur})
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("lm 10c: non-finite serve logits")
+        cur = torch.argmax(logits, dim=-1)
+        served.append(cur[:, 0].tolist())
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if cache["blocks"]["index"].tolist() != [8] * cfg.n_layers:
+        raise AssertionError(f"lm 10c: cache index {cache['blocks']['index'].tolist()}")
+    peak_all = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, cache, central, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, n_layers=cfg.n_layers, init_s=init_s, secs=secs, losses=losses,
+                counts=counts, groups=groups.tolist(), launches=launches, n_leaves=n_leaves,
+                peak_gb=peak_gb, peak_all_gb=peak_all, tokens=tokens, flops=flops, sk_ms=sk_ms,
+                sk_bound=sk_bound, n_last=n_last, agg=agg, closs=closs, prefill_s=prefill_s,
+                serve_s=serve_s, served=served)
+
+
+def check_lm_rows(torch, ops, ref, sigs) -> float:
+    """Each of the LM path's segment call shapes (time_segment's sig), int32
+    ids as the step passes them, held against the plain version on the same
+    inputs (2e-5); returns the largest error."""
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for ds, K, dt, weighted in sigs:
+        C, P, D = ds
+        d = torch.randn(ds, generator=g, device="cuda", dtype=dt)
+        ids = torch.randint(0, K, (C, P), generator=g, device="cuda", dtype=torch.int32)
+        w = torch.rand((C, P), generator=g, device="cuda") if weighted else None
+        got, want = ops.segment_aggregate(d, ids, K, w), ref.segment_aggregate(d, ids, K, w)
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+            raise AssertionError(f"segment at the LM shape {ds} K {K}: max err {err}")
+        worst = max(worst, err)
+        del d, ids, w, got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def lm_row_sigs(n_params_by_leaf, C, d_sketch, k, dt):
+    """The LM path's distinct segment call shapes (time_segment's sig): each
+    leaf's aggregation (1, C, n) into one weighted segment, largest first,
+    then the clustering sums (1, C, d_sketch) and counts (1, C, 1) into k."""
+    sizes = sorted(set(n_params_by_leaf), reverse=True)
+    return ([((1, C, n), 1, dt, True) for n in sizes]
+            + [((1, C, d_sketch), k, dt, False), ((1, C, 1), k, dt, False)])
+
+
+def run_lm_phase(torch, np, ops, ref):
+    """Phase 10 (after phase 9 has freed its memory): 10a card vs CPU, 10b
+    and 10c at granite-3-2b's full width, then the LM path's segment rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    undo = forbid_cuda_in_plain(torch, ref)
+    try:
+        small = lm_small_reference(torch, np)
+        print(f"[lm-train] 10a reduced {GRANITE} (C 4, m 4, S 16, 3 rounds): card == CPU assignments "
+              f"{small['assign']}, cluster counts {small['counts']}; max |card - CPU| {small['errs']} "
+              f"within rtol 1e-4, atol 1e-5 + 2 x float32's own error per leaf (max |CPU f32 - "
+              f"CPU f64| {small['floors']}); segment kernel launches {small['launches']}", flush=True)
+        lm = lm_train_phase(torch)
+    finally:
+        undo()
+    s_round = statistics.median(lm["secs"])
+    flop_ms = lm["flops"] / FP32_FLOPS * 1e3
+    print(f"[lm-train] 10b {GRANITE} full width ({lm['n_params']:,} params, f32, {lm['n_layers']} "
+          f"layers, attn_qchunk 512, ce_chunk 1024), {LM_C} clients x {LM_M} sequences x {LM_S} "
+          f"tokens (synth_corpus groups {lm['groups']}), local_steps 2, d_sketch 128: init "
+          f"{lm['init_s']:.2f} s; s/round {[round(x, 4) for x in lm['secs']]}; loss by round "
+          f"{[round(x, 5) for x in lm['losses']]}; cluster counts {lm['counts']}", flush=True)
+    print(f"[lm-train] 10b {lm['tokens'] / s_round:.1f} tokens/s (median round {s_round:.4f} s); "
+          f"{lm['flops'] / 1e12:.2f} TFLOP a round (8 x N x {lm['tokens']} tokens: forward, backward, "
+          f"recompute) bound {flop_ms / 1e3:.4f} s at 67 TFLOP/s f32 = {100 * flop_ms / 1e3 / s_round:.1f}% "
+          f"of the FLOP bound; peak memory {lm['peak_gb']:.2f} GB (10c included: "
+          f"{lm['peak_all_gb']:.2f} GB)", flush=True)
+    sk_bytes_ms = LM_C * lm["n_last"] * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"[lm-train] 10b sketch per round {[round(x, 3) for x in lm['sk_ms']]} ms against its byte "
+          f"bound {sk_bytes_ms:.4f} ms ({LM_C} x {lm['n_last']:,} last-block values read once) and "
+          f"its bound {lm['sk_bound'][0]:.4f} ms ({lm['sk_bound'][1]}: their products with the "
+          f"(block, 128) matrices; the {lm['n_last'] * 128 / 1e9:.2f}G Rademacher draws come on top)",
+          flush=True)
+    for sig, ms in sorted(lm["agg"].items(), key=lambda kv: -math.prod(kv[0][0])):
+        (C, P, D), K, w = sig
+        b = bound(C * P * D * 4 + C * P * (8 if w else 4) + C * K * D * 4, C * P * D * (2 if w else 1))
+        print(f"[lm-train] 10b segment call {sig} x{len(ms)}: {statistics.median(ms):.4f} ms median "
+              f"(events, in the step) against its bound {b[0]:.4f} ms ({b[1]})", flush=True)
+    print(f"[lm-train] 10b segment kernel launches {lm['launches']} = {LM_ROUNDS} rounds x (2 "
+          f"clustering + {lm['n_leaves']} leaves), none on the plain version", flush=True)
+    print(f"[lm-train] 10c central steps (B 4 x {LM_S}, 4 clients) loss {lm['closs']}; prefill 2 x "
+          f"{LM_S} in {lm['prefill_s']:.4f} s; 8 served tokens against a 1024-slot cache in "
+          f"{lm['serve_s']:.4f} s, greedy {lm['served']}; all finite", flush=True)
+    sizes = [a.numel() for a in leaves(build_model(get_config(GRANITE)).init_shapes())]
+    sigs = lm_row_sigs(sizes, LM_C, 128, 2, torch.float32)
+    worst = check_lm_rows(torch, ops, ref, sigs)
+    rows = {}
+    for sig in sigs:
+        t = time_segment(torch, ops, ref, sig, id_dtype=torch.int32, inner=3, reps=5)
+        print_row("segment_aggregate", f"LM path {sig}", t)
+        (C, P, D), K, _, weighted = sig
+        rows[f"lm_{C}_{P}_{D}_k{K}{'_w' if weighted else ''}"] = row_json(sig, t)
+    return dict(launches=lm["launches"], rows=rows, worst=worst)
+
+
+def lm_only(torch) -> int:
+    """``--lm-train``: build, then phase 10 alone."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops, ref
+
+    so = build.build()
+    print(f"[build] {so}")
+    out = run_lm_phase(torch, np, ops, ref)
+    print(json.dumps({"lm_rows": out["rows"], "lm_launches": out["launches"],
+                      "max_abs_err": out["worst"]}))
+    print(smi())
+    return 0
+
+
 def row_json(sig, t):
     return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
@@ -883,6 +1236,8 @@ def main(argv) -> int:
         return decode_timing_only(torch)
     if "--kernel-timing" in argv:
         return kernel_timing_only(torch)
+    if "--lm-train" in argv:
+        return lm_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -1056,6 +1411,15 @@ def main(argv) -> int:
                     "bound_ms": t["bound"][0], "plain_ms": t["plain_ms"],
                     "library_ms": t["library_ms"]}
     report.append(row)
+
+    # ------------------------------------------------- phase 10: LM training
+    lm = run_lm_phase(torch, np, ops, ref)
+    if lm["launches"] <= 0:
+        return fail("the LM path never launched the segment kernel")
+    seg = next(r for r in report if r["name"] == "segment_aggregate")
+    seg["lm_launches"] = lm["launches"]
+    seg["lm_rows"] = lm["rows"]
+    seg["max_abs_err"] = max(seg["max_abs_err"], lm["worst"])
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

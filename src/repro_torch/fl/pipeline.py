@@ -44,7 +44,7 @@ from repro_torch.core.cohort import distance_matrix
 from repro_torch.fl.algorithms import apply_stacked
 from repro_torch.fl.client import local_train
 from repro_torch.kernels import ops as kops
-from repro_torch.utils.tree import map_nested
+from repro_torch.utils.tree import tree_map
 
 LATER = "later port slice"
 
@@ -84,8 +84,8 @@ class CohortBank:
             out[0] = a
             return out
 
-        self.params = map_nested(stack, params)
-        self.opt_state = map_nested(stack, opt_state)
+        self.params = tree_map(stack, params)
+        self.opt_state = tree_map(stack, opt_state)
         self.slot_of: Dict[str, int] = {"0": 0}
         self.id_of: Dict[int, str] = {0: "0"}
         self.clock = np.zeros(self.capacity, np.float64)
@@ -98,7 +98,7 @@ class CohortBank:
 
     def opt_state_of(self, cohort_id: str):
         i = self.slot_of[cohort_id]
-        return map_nested(lambda a: a[i], self.opt_state)
+        return tree_map(lambda a: a[i], self.opt_state)
 
     def spawn_children(self, parent: str, children: List[str]) -> List[int]:
         """Warm-start child slots from the parent slot (§4.2)."""
@@ -117,8 +117,8 @@ class CohortBank:
             a[idx] = a[ps].clone()  # in-place update of the bank tensor
             return a
 
-        map_nested(copy, self.params)
-        map_nested(copy, self.opt_state)
+        tree_map(copy, self.params)
+        tree_map(copy, self.opt_state)
         self.clock[idx] = self.clock[ps]
         self.rounds[idx] = self.rounds[ps]
         return idx

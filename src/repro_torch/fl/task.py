@@ -1,15 +1,16 @@
 """FL task: a model + loss + eval packaged for the round engine.
 
-Port of ``repro.fl.task.MLPTask`` (the classifier every paper benchmark
-runs). Params are a dict ``{"w0": (in, h), ..., "b0": (h,), ...}``; every
-method also takes stacked params with a leading row axis (R, ...) and then
-runs all rows as one batched matmul (``torch.bmm``), the port's form of
-JAX's ``vmap``.
+Port of ``repro.fl.task``: ``MLPTask`` (the classifier every paper
+benchmark runs) and ``TransformerTask`` (a zoo model over token batches).
+``MLPTask``'s params are a dict ``{"w0": (in, h), ..., "b0": (h,), ...}``;
+every method also takes stacked params with a leading row axis (R, ...)
+and then runs all rows as one batched matmul (``torch.bmm``), the port's
+form of JAX's ``vmap``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
@@ -67,4 +68,28 @@ class MLPTask:
         dev = params["w0"].device
         x = torch.as_tensor(x, device=dev)
         y = torch.as_tensor(y, device=dev)
+        return float(self.correct_fraction(params, x, y))
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerTask:
+    """Wraps a (reduced) zoo model as an FL task over token batches."""
+
+    model: Any  # repro_torch.models.zoo.Model
+
+    def init(self, key, device=None):
+        return self.model.init(key, device=device)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        tokens = batch[0] if isinstance(batch, tuple) else batch
+        l, _ = self.model.loss(params, {"tokens": tokens})
+        return l
+
+    def correct_fraction(self, params, x, y=None) -> torch.Tensor:
+        """Next-token accuracy of the greedy prediction."""
+        logits, _ = self.model.forward(params, {"tokens": x})
+        pred = torch.argmax(logits[:, :-1], dim=-1)
+        return (pred == x[:, 1:]).float().mean()
+
+    def accuracy(self, params, x, y=None) -> float:
         return float(self.correct_fraction(params, x, y))

@@ -222,7 +222,9 @@ __device__ __forceinline__ int row_shift(const T* row, int col0) {
 template <typename T>
 __device__ void stage_tile(unsigned char* ring, const T* db, int rows, int D, int col0) {
   constexpr int kPieces = kSlot / 16;
-  const int bytes = min(kRowBytes, (D - col0) * (int)sizeof(T));
+  // in 64 bits: (D - col0) bytes pass 2**31 on the first tiles of a row of
+  // more than 2**29 f32 columns (a granite-3-2b MLP leaf, 671M values)
+  const int bytes = (int)min((long long)kRowBytes, (long long)(D - col0) * (long long)sizeof(T));
   for (int i = threadIdx.x; i < rows * kPieces; i += kThreads) {
     const int r = i / kPieces, j = i % kPieces;
     const uintptr_t start = reinterpret_cast<uintptr_t>(db + (size_t)r * D + col0);

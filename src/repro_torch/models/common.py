@@ -13,8 +13,10 @@ then uses its own weights, and the matmuls over them run as one
 ``torch.bmm``: the port's form of the JAX package's ``vmap`` over bank rows.
 
 Supported: RMSNorm, SwiGLU / GELU MLPs, GQA projections with RoPE and
-qk_norm. M-RoPE, sliding-window attention, MoE and the training attention
-are a later port slice and raise ``NotImplementedError``.
+qk_norm, the training attention (causal, optionally sliding-window, in
+query chunks under activation checkpointing) and the single-token decode
+against a (ring) KV cache. M-RoPE and MoE are a later port slice and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as rnd
 
@@ -246,8 +249,113 @@ def attention_out(params, a: torch.Tensor) -> torch.Tensor:
     return _dot(a, params["wo"], 2, params["wo"].dim() == 4)
 
 
+def _attn_block(cfg: ModelConfig, q_blk, k, v, offset: int, S: int, window: int):
+    """Attention of one query block vs the full K/V. q_blk: (B, qs, Hkv, g, hd)."""
+    qs = q_blk.shape[1]
+    scores = torch.einsum("bsngk,btnk->bnsgt", q_blk, k).float()
+    scores = scores / math.sqrt(cfg.hd)
+    i = offset + torch.arange(qs, device=k.device)[:, None]
+    j = torch.arange(S, device=k.device)[None, :]
+    mask = j <= i
+    if window and window > 0:
+        mask &= j > i - window
+    # -1e30, not -inf: the JAX package's fill, kept for equal softmaxes
+    scores = scores.masked_fill(~mask[None, None, :, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(k.dtype)
+    return torch.einsum("bnsgt,btnk->bsngk", probs, v)
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass (the
+    JAX package's ``jax.checkpoint``) while autograd records."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def attention(params, cfg: ModelConfig, x, positions, window: int = -1):
-    raise NotImplementedError(f"training attention: {LATER}")
+    """Training-mode causal (optionally sliding-window) GQA attention.
+
+    x: (B, S, D). window: -1 -> cfg.sliding_window, 0 -> full causal.
+    Queries run in blocks of ``attn_qchunk``, each under activation
+    checkpointing, so only one block's (S x S/nb) scores live at a time
+    (plain PyTorch, as the JAX package computes it outside any kernel).
+    """
+    B, S, _ = x.shape
+    hd = cfg.hd
+    group = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _qkv(params, cfg, x, positions)
+    # (B, S, n_kv, group, hd): the grouped query layout of the JAX package
+    q = q.reshape(B, S, cfg.n_kv_heads, group, hd)
+    w = cfg.sliding_window if window == -1 else window
+
+    qc = cfg.attn_qchunk
+    if qc <= 0 or S <= qc:
+        out = _attn_block(cfg, q, k, v, 0, S, w)
+    else:
+        assert S % qc == 0, (S, qc)
+        outs = [
+            _checkpointed(lambda qi, kk, vv, i=i: _attn_block(cfg, qi, kk, vv, i * qc, S, w),
+                          q[:, i * qc:(i + 1) * qc], k, v)
+            for i in range(S // qc)
+        ]
+        out = torch.cat(outs, dim=1)
+    return attention_out(params, out.reshape(B, S, cfg.n_heads, hd))
+
+
+def attention_decode(params, cfg: ModelConfig, x, cache, window: int = -1):
+    """Single-token decode: x (B, 1, D); cache dict(k, v, index).
+
+    cache["k"], cache["v"]: (B, C, n_kv, hd), C = full sequence or the
+    sliding-window ring; cache["index"]: 0-dim int32, tokens already cached.
+    With a ring (C < sequence) positions keep counting up but writes wrap.
+    The new K/V are written into the cache in place (the JAX package
+    re-emits it); the returned cache holds the same K/V tensors and
+    ``index + 1``.
+    """
+    B = x.shape[0]
+    hd = cfg.hd
+    group = cfg.n_heads // cfg.n_kv_heads
+    C = cache["k"].shape[1]
+    idx = cache["index"]
+
+    positions = default_positions(cfg, B, 1, offset=idx.reshape(1, 1).expand(B, 1))
+    q, k, v = _qkv(params, cfg, x, positions)  # (B, 1, h, hd)
+
+    slot = torch.remainder(idx, C).to(torch.int64)
+    ck, cv = cache["k"], cache["v"]
+    ck.index_copy_(1, slot.reshape(1), k.to(ck.dtype))
+    cv.index_copy_(1, slot.reshape(1), v.to(cv.dtype))
+
+    q = q.reshape(B, 1, cfg.n_kv_heads, group, hd)
+    scores = torch.einsum("bsngk,btnk->bnsgt", q, ck).float() / math.sqrt(hd)
+
+    # valid slots: those already written (ring-aware); ring order does not
+    # matter to the softmax
+    t = torch.arange(C, device=x.device)
+    valid = t < torch.clamp(idx + 1, max=C)
+    w = cfg.sliding_window if window == -1 else window
+    if w and 0 < w < C:
+        # a ring sized >= the window: all written slots are within it
+        valid &= torch.remainder(slot - t, C) < w
+    scores = scores.masked_fill(~valid[None, None, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bnsgt,btnk->bsngk", probs, cv).reshape(B, 1, cfg.n_heads, hd)
+    y = attention_out(params, out)
+    return y, {"k": ck, "v": cv, "index": idx + 1}
+
+
+def attention_cache_init(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device=None):
+    """KV cache for one layer. Sliding-window archs get a ring of the window."""
+    C = max_seq
+    if cfg.sliding_window and cfg.sliding_window < max_seq:
+        C = cfg.sliding_window
+    dtype = dtype or cfg.dtype
+    return {
+        "k": torch.zeros((batch, C, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, C, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=device),
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -286,3 +394,19 @@ def block_init(key, cfg: ModelConfig):
         "mlp_norm": rmsnorm_init(cfg.d_model, cfg.dtype, key.device),
         "mlp": mlp_init(k_m, cfg),
     }
+
+
+def block_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
+    a = attention(params["attn"], cfg, rmsnorm(params["attn_norm"], x, cfg.norm_eps), positions, window)
+    x = x + a
+    m = mlp(params["mlp"], rmsnorm(params["mlp_norm"], x, cfg.norm_eps))
+    return x + m
+
+
+def block_decode(params, cfg: ModelConfig, x, cache, window: int = -1):
+    a, cache = attention_decode(
+        params["attn"], cfg, rmsnorm(params["attn_norm"], x, cfg.norm_eps), cache, window
+    )
+    x = x + a
+    x = x + mlp(params["mlp"], rmsnorm(params["mlp_norm"], x, cfg.norm_eps))
+    return x, cache

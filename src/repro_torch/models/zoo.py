@@ -1,4 +1,5 @@
-"""Model handle: binds a ModelConfig to its init (port of ``repro.models.zoo``)."""
+"""Model handle: binds a ModelConfig to its init, loss and decode callables
+(port of ``repro.models.zoo``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +12,7 @@ from repro_torch import random as rnd
 from repro_torch import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
-from repro_torch.utils.tree import map_nested
+from repro_torch.utils.tree import tree_map
 
 
 def _leaves(tree):
@@ -37,8 +38,27 @@ class Model:
         storage and no arithmetic."""
         return transformer.model_init(rnd.key(0, device="meta"), self.cfg)
 
+    def forward(self, params, batch, window: int = -1):
+        return transformer.forward(params, self.cfg, batch, window)
+
+    def loss(self, params, batch, window: int = -1):
+        return transformer.loss_fn(params, self.cfg, batch, window)
+
+    def init_cache(self, batch: int, max_seq: int, dtype=None, device=None):
+        """Decode caches on ``device`` (the card unless the caller passes
+        ``device="cpu"``)."""
+        return transformer.init_cache(self.cfg, batch, max_seq, dtype, resolve_device(device))
+
+    def decode_step(self, params, tokens, cache, window: int = -1):
+        return transformer.decode_step(params, self.cfg, tokens, cache, window)
+
     def param_count(self) -> int:
         return sum(math.prod(a.shape) for a in _leaves(self.init_shapes()))
+
+    def active_param_count(self) -> int:
+        """Active params per token; the dense family's are all of them (MoE
+        configs raise in ``init_shapes``: a later port slice)."""
+        return self.param_count()
 
     def init_bank(self, key, n_slots: int, device=None) -> Dict[str, Any]:
         """A cohort bank of ``n_slots`` models on ``device`` (as ``init``),
@@ -46,12 +66,12 @@ class Model:
         straight into its slot (no model is built twice)."""
         dev = resolve_device(device)
         key = key.to(dev)
-        bank = map_nested(
+        bank = tree_map(
             lambda a: torch.empty((n_slots,) + tuple(a.shape), dtype=a.dtype, device=dev),
             self.init_shapes(),
         )
         for i in range(n_slots):
-            self.init(rnd.fold_in(key, i), out=map_nested(lambda a: a[i], bank), device=dev)
+            self.init(rnd.fold_in(key, i), out=tree_map(lambda a: a[i], bank), device=dev)
         return bank
 
 

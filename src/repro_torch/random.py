@@ -22,22 +22,42 @@ _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _M
+def _i32(x):
+    """uint32 words (int64 tensors or ints) as int32 bit patterns."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32)  # keeps the low 32 bits
+    x = int(x) & _M
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _rotl_(x: torch.Tensor, r: int, tmp: torch.Tensor) -> torch.Tensor:
+    """Rotate int32 bit patterns left by r, in place (``tmp``: scratch of
+    x's shape). The right shift is arithmetic: its sign bits are masked."""
+    torch.bitwise_right_shift(x, 32 - r, out=tmp)
+    tmp.bitwise_and_((1 << r) - 1)
+    return x.bitwise_left_shift_(r).bitwise_or_(tmp)
 
 
 def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The 20-round Threefry-2x32 block function on broadcastable int64
-    tensors of uint32 words (as ``jax._src.prng._threefry2x32_lowering``)."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x = [(x1 + ks[0]) & _M, (x2 + ks[1]) & _M]
+    """The 20-round Threefry-2x32 block function on broadcastable tensors of
+    uint32 words (as ``jax._src.prng._threefry2x32_lowering``). The rounds
+    run in place on int32 bit patterns, whose additions wrap like uint32
+    ones (half the bytes of int64, no masks, no allocation per operation);
+    the outputs are int64 words."""
+    k1, k2, x1, x2 = _i32(k1), _i32(k2), _i32(x1), _i32(x2)
+    ks = (k1, k2, k1 ^ k2 ^ _i32(0x1BD11BDA))
+    x0, y = x1 + ks[0], x2 + ks[1]
+    shape = torch.broadcast_shapes(x0.shape, y.shape)
+    x0 = x0.expand(shape).contiguous() if x0.shape != shape else x0
+    y = y.expand(shape).contiguous() if y.shape != shape else y
+    tmp = torch.empty_like(y)
     for i in range(5):
         for r in _ROT[i % 2]:
-            x[0] = (x[0] + x[1]) & _M
-            x[1] = _rotl(x[1], r) ^ x[0]
-        x[0] = (x[0] + ks[(i + 1) % 3]) & _M
-        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _M
-    return x[0], x[1]
+            x0.add_(y)
+            _rotl_(y, r, tmp).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3])
+        y.add_(ks[(i + 2) % 3]).add_(i + 1)
+    return x0.to(torch.int64) & _M, y.to(torch.int64) & _M
 
 
 def key(seed: int, device=None) -> torch.Tensor:
@@ -50,6 +70,9 @@ def key(seed: int, device=None) -> torch.Tensor:
 def _iota(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat index of every element as (hi, lo) uint32 words."""
     n = math.prod(shape)
+    if n < 2**31:  # the high word is 0
+        lo = torch.arange(n, dtype=torch.int32, device=device).reshape(tuple(shape))
+        return torch.zeros((), dtype=torch.int32, device=device), lo
     flat = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
     return (flat >> 32) & _M, flat & _M
 
@@ -94,9 +117,11 @@ def uniform(k, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
 
 
 def rademacher(k, shape, dtype=torch.float32) -> torch.Tensor:
-    """±1 draws: ``bernoulli(p=0.5)`` is ``uniform < 0.5``."""
-    u = uniform(k, shape)
-    return (2 * (u < 0.5).to(dtype) - 1).to(dtype)
+    """±1 draws: ``bernoulli(p=0.5)`` is ``uniform < 0.5``, and the uniform
+    (the top 23 bits over [1, 2), minus 1) is below 0.5 exactly when the
+    draw's top bit is 0, so the sign is read off that bit."""
+    top = bits(k, shape) >> 31
+    return (1 - 2 * top).to(dtype)
 
 
 def normal(k, shape) -> torch.Tensor:

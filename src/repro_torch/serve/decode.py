@@ -42,7 +42,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.transformer import embed_tokens, lm_logits
 from repro_torch.serve.kv_cache import PagedKVCache
-from repro_torch.utils.tree import map_nested
+from repro_torch.utils.tree import tree_map
 
 ATTEND = {
     "kernel": kops.decode_attention,
@@ -73,7 +73,7 @@ def make_decode_step(cfg, attend: Callable) -> Callable:
         length = (starts + 1).to(torch.int32)
         blocks = params["backbone"]["blocks"]
         for layer in range(cfg.n_layers):
-            p = map_nested(lambda a: a[layer], blocks)  # this layer's (R, ...) rows
+            p = tree_map(lambda a: a[layer], blocks)  # this layer's (R, ...) rows
             xa = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
             q, k, v = _qkv(p["attn"], cfg, xa, positions)  # (R, N, 1, H|Hkv, hd)
             kl, vl = kc[:, :, layer], vc[:, :, layer]  # (R, N, S, Hkv, hd) views
@@ -168,11 +168,11 @@ class CohortDecoder:
     def _gather(self, slots) -> dict:
         """The rows' params: block-stack leaves (L, R, ...), the rest (R, ...)."""
         bank = self.params_fn()
-        blocks = map_nested(
+        blocks = tree_map(
             lambda a: torch.stack([a[s] for s in slots], dim=1), bank["backbone"]["blocks"]
         )
         idx = torch.as_tensor(slots, device=bank["embed"].device)
-        rest = {k: map_nested(lambda a: a[idx], v) for k, v in bank.items() if k != "backbone"}
+        rest = {k: tree_map(lambda a: a[idx], v) for k, v in bank.items() if k != "backbone"}
         return {"backbone": {"blocks": blocks}, **rest}
 
     # -------------------------------------------------------------- decode

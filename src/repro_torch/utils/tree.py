@@ -1,27 +1,48 @@
-"""Arithmetic over parameter dicts ``{name: tensor}`` (the port's pytrees).
+"""Arithmetic over parameter trees: (possibly nested) dicts of tensors.
 
 Code that walks leaves in order (sketches, DP noise keys, the stage-②
-flattening) sorts the names: that is JAX's flattening order for dicts, so
-both packages agree.
+flattening, checkpoints) sorts the keys at every level: that is JAX's
+flattening order for dicts, so both packages agree. ``leaves_with_path``
+names each leaf by its JAX key path (``"['backbone']['blocks']['mlp']['wg']"``),
+the string ``jax.tree_util.keystr`` gives it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 
-Tree = Dict[str, torch.Tensor]
+Tree = Dict[str, Any]
 
 
-def tree_map(fn, *trees: Tree) -> Tree:
-    return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure: nested dicts (keys
+    in sorted order, JAX's) and lists (in order). The one walker of the
+    port: model params, bank stacks, optimizer state, per-layer splits."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(u[k] for u in trees)) for k in sorted(t)}
+    if isinstance(t, list):
+        return [tree_map(fn, *u) for u in zip(*trees)]
+    return fn(*trees)
 
 
-def map_nested(fn, tree):
-    """``fn`` on every leaf of a nested dict (bank stacks, model params)."""
-    if isinstance(tree, dict):
-        return {k: map_nested(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def leaves_with_path(tree: Tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(JAX key path, leaf) pairs in JAX's flattening order (sorted keys)."""
+    out = []
+    for k in sorted(tree):
+        path = f"{prefix}['{k}']"
+        v = tree[k]
+        if isinstance(v, dict):
+            out.extend(leaves_with_path(v, path))
+        else:
+            out.append((path, v))
+    return out
+
+
+def leaves(tree: Tree) -> List[torch.Tensor]:
+    """The leaves in JAX's flattening order."""
+    return [v for _, v in leaves_with_path(tree)]
 
 
 def tree_add(a: Tree, b: Tree) -> Tree:
@@ -40,8 +61,8 @@ def tree_dot(a: Tree, b: Tree, batch_dims: int = 0) -> torch.Tensor:
     """Sum of elementwise products; the first ``batch_dims`` axes are kept
     (per-row dot products of stacked trees)."""
     out = 0
-    for k in sorted(a):
-        prod = a[k] * b[k]
+    for x, y in zip(leaves(a), leaves(b)):
+        prod = x * y
         out = out + prod.reshape(prod.shape[:batch_dims] + (-1,)).sum(-1)
     return out
 

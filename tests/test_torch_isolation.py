@@ -22,6 +22,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import sys, repro_torch, repro_torch.fl, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.models, repro_torch.configs, repro_torch.serve\n"
         "import repro_torch.configs.granite_3_2b, repro_torch.configs.shapes\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.checkpoint.npz\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -115,7 +116,8 @@ def test_later_model_families_and_sliding_window_decode_raise():
     with pytest.raises(NotImplementedError, match="full-attention"):
         CohortDecoder(build_model(danube), dict, list, device="cpu")
     x = torch.zeros(1, 2, danube.d_model)
-    for fn in (lambda: common.attention({}, danube, x, None),
+    moe = reduce_config(all_configs()["qwen3_moe_235b_a22b"])
+    for fn in (lambda: transformer.backbone_apply({}, moe, x, None),
                lambda: common.apply_mrope(x, None, 1e4, (1, 1, 1)),
                lambda: transformer.embed_tokens({}, reduce_config(all_configs()["musicgen_large"]), x)):
         with pytest.raises(NotImplementedError):

@@ -26,7 +26,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import common as tc
 from repro_torch.models import transformer as tt
-from repro_torch.utils.tree import map_nested
+from repro_torch.utils.tree import tree_map
 
 DENSE = ["granite-3-2b", "h2o-danube-3-4b", "starcoder2-15b", "qwen3-8b"]
 TOL = 1e-5
@@ -129,7 +129,7 @@ def test_blocks_match_jax(carried, arch):
     B, S = 2, 5
     x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
     blk_j = jax.tree.map(lambda a: a[1], jp["backbone"]["blocks"])  # layer 1
-    blk_t = map_nested(lambda a: a[1], tp["backbone"]["blocks"])
+    blk_t = tree_map(lambda a: a[1], tp["backbone"]["blocks"])
     xj, xt = jnp.asarray(x), torch.from_numpy(x)
     _close(tc.rmsnorm(blk_t["attn_norm"], xt), jc.rmsnorm(blk_j["attn_norm"], xj))
     pos = rng.integers(0, 50, (B, S)).astype(np.int32)
@@ -161,7 +161,7 @@ def test_qkv_without_qk_norm_and_tied_head_match_jax():
     x = np.random.default_rng(2).standard_normal((3, 4, jcfg.d_model)).astype(np.float32)
     pos = np.tile(np.arange(4, dtype=np.int32) + 7, (3, 1))
     blk_j = jax.tree.map(lambda a: a[0], jp["backbone"]["blocks"])
-    blk_t = map_nested(lambda a: a[0], tp["backbone"]["blocks"])
+    blk_t = tree_map(lambda a: a[0], tp["backbone"]["blocks"])
     for got, want in zip(tc._qkv(blk_t["attn"], tcfg, torch.from_numpy(x), torch.from_numpy(pos)),
                          jc._qkv(blk_j["attn"], jcfg, jnp.asarray(x), jnp.asarray(pos))):
         _close(got, want)
@@ -173,7 +173,7 @@ def test_stacked_rows_match_per_row(carried):
     weights (one bmm) and equals the unstacked call on that row."""
     jcfg, tcfg, jp, tp = carried["qwen3-8b"]
     bank = tbuild(tcfg).init_bank(rnd.key(5), 2, device="cpu")
-    blk = map_nested(lambda a: a[:, 0], bank["backbone"]["blocks"])  # (2, ...) layer 0
+    blk = tree_map(lambda a: a[:, 0], bank["backbone"]["blocks"])  # (2, ...) layer 0
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 3, 1, tcfg.d_model, generator=g)
     pos = torch.tensor([[4], [9], [0]])[None].expand(2, 3, 1)
@@ -182,11 +182,11 @@ def test_stacked_rows_match_per_row(carried):
     logits = tt.lm_logits(bank, tcfg, x)
     emb = tt.embed_tokens(bank, tcfg, torch.tensor([[1, 2], [3, 4]]))
     for r in range(2):
-        row = map_nested(lambda a: a[r], blk)
+        row = tree_map(lambda a: a[r], blk)
         for got, want in zip((q, k, v), tc._qkv(row["attn"], tcfg, x[r], pos[r])):
             torch.testing.assert_close(got[r], want, rtol=TOL, atol=TOL)
         torch.testing.assert_close(m[r], tc.mlp(row["mlp"], tc.rmsnorm(row["mlp_norm"], x[r])),
                                    rtol=TOL, atol=TOL)
-        prow = map_nested(lambda a: a[r], bank)
+        prow = tree_map(lambda a: a[r], bank)
         torch.testing.assert_close(logits[r], tt.lm_logits(prow, tcfg, x[r]), rtol=TOL, atol=TOL)
         torch.testing.assert_close(emb[r], prow["embed"][torch.tensor([[1, 2], [3, 4]])[r]])
