@@ -8,6 +8,7 @@
     python3 chip_smoke.py --kernel-timing [--src DIR]  # build + phase 6's fixed
         # rows of the segment and cosine kernels alone, likewise
     python3 chip_smoke.py --lm-train      # build + phase 10 alone
+    python3 chip_smoke.py --engine-modes  # build + phase 4's run + phase 11 alone
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -47,7 +48,20 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      aggregation call's time; every aggregation call on the segment kernel,
      none on a plain version; (c) 2 ``make_central_train_step`` steps, a
      prefill of 2 x 512 tokens and 8 served tokens, all finite; then the LM
-     path's segment calls held against the plain version and timed.
+     path's segment calls held against the plain version and timed;
+ 11. engine modes (the plain versions raise on CUDA tensors throughout,
+     each path's round-kernel launches counted from 0): (a) the sequential
+     oracle beside the batched round on ``tests/test_pipeline.py``'s scenario
+     (300 clients, 30 rounds, two partitions), both from the same bank each
+     round; (b) ``round_overlap=1`` bit-equal to the stale-sync oracle (a
+     synchronize after every dispatch), then phase 4's run overlapped
+     (s/round beside phase 4's) and its steps alone, synchronous and
+     overlapped, with the calls that synchronized with the card counted per
+     overlapped round (sync debug mode "warn"); (c) the population plane at
+     100,000 and 1,000,000 clients (``ProceduralDataPlane``, the chunked
+     store, chunked availability, churn), synchronous and overlapped,
+     6 rounds each, and the store-versus-dense scenario bit-equal; then
+     every call shape of the phase held against the plain version.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -271,14 +285,14 @@ SMALL_AUXO = dict(d_sketch=64, cluster_k=2, max_cohorts=2, clustering_start_frac
                   partition_start_frac=0.1, min_members=8)
 
 
-def run_main(torch, rounds: int):
+def run_main(torch, rounds: int, **fl_kw):
     from repro_torch.data import make_population
     from repro_torch.fl import AuxoConfig, FLConfig, MLPTask, run_auxo
 
     pop = make_population(**POP)
     task = MLPTask(dim=pop.dim, n_classes=pop.n_classes)
     fl = FLConfig(rounds=rounds, participants_per_round=100,
-                  eval_every=max(2, rounds // 20), use_availability=True, seed=1)
+                  eval_every=max(2, rounds // 20), use_availability=True, seed=1, **fl_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng, hist = run_auxo(task, pop, fl, AuxoConfig(**AUXO), device="cuda")
@@ -1072,22 +1086,30 @@ def lm_train_phase(torch):
                 serve_s=serve_s, served=served)
 
 
-def check_lm_rows(torch, ops, ref, sigs) -> float:
-    """Each of the LM path's segment call shapes (time_segment's sig), int32
-    ids as the step passes them, held against the plain version on the same
-    inputs (2e-5); returns the largest error."""
-    worst = 0.0
+def check_rows(torch, ops, ref, cos_sigs, seg_sigs, id_dtype=None) -> dict:
+    """Call shapes (phase 6's sigs) of the round kernels held against the
+    plain version on the same random inputs (2e-5); segment ids of
+    ``id_dtype`` (int64 unless given; the LM step passes int32). Each
+    input is freed before the next (the LM rows reach 5.4 GB). Returns the
+    largest error per kernel."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    for ds, K, dt, weighted in sigs:
-        C, P, D = ds
+    worst = {"cosine_similarity": 0.0, "segment_aggregate": 0.0}
+    for xs, cs_shape, dt in cos_sigs:
+        x = torch.randn(xs, generator=g, device="cuda").to(dt)
+        c = torch.randn(cs_shape, generator=g, device="cuda").to(dt)
+        got, want = ops.cosine_similarity(x, c), ref.cosine_similarity(x, c)
+        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+            raise AssertionError(f"cosine at the shape {xs} x {cs_shape}")
+        worst["cosine_similarity"] = max(worst["cosine_similarity"], (got - want).abs().max().item())
+    for ds, K, dt, weighted in seg_sigs:
         d = torch.randn(ds, generator=g, device="cuda", dtype=dt)
-        ids = torch.randint(0, K, (C, P), generator=g, device="cuda", dtype=torch.int32)
-        w = torch.rand((C, P), generator=g, device="cuda") if weighted else None
+        ids = torch.randint(0, K, ds[:-1], generator=g, device="cuda", dtype=id_dtype or torch.int64)
+        w = torch.rand(ds[:-1], generator=g, device="cuda") if weighted else None
         got, want = ops.segment_aggregate(d, ids, K, w), ref.segment_aggregate(d, ids, K, w)
         err = (got - want).abs().max().item()
         if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
-            raise AssertionError(f"segment at the LM shape {ds} K {K}: max err {err}")
-        worst = max(worst, err)
+            raise AssertionError(f"segment at the shape {ds} K {K}: max err {err}")
+        worst["segment_aggregate"] = max(worst["segment_aggregate"], err)
         del d, ids, w, got, want
         torch.cuda.empty_cache()
     return worst
@@ -1151,7 +1173,7 @@ def run_lm_phase(torch, np, ops, ref):
           f"{lm['serve_s']:.4f} s, greedy {lm['served']}; all finite", flush=True)
     sizes = [a.numel() for a in leaves(build_model(get_config(GRANITE)).init_shapes())]
     sigs = lm_row_sigs(sizes, LM_C, 128, 2, torch.float32)
-    worst = check_lm_rows(torch, ops, ref, sigs)
+    worst = check_rows(torch, ops, ref, [], sigs, torch.int32)["segment_aggregate"]
     rows = {}
     for sig in sigs:
         t = time_segment(torch, ops, ref, sig, id_dtype=torch.int32, inner=3, reps=5)
@@ -1172,6 +1194,378 @@ def lm_only(torch) -> int:
     out = run_lm_phase(torch, np, ops, ref)
     print(json.dumps({"lm_rows": out["rows"], "lm_launches": out["launches"],
                       "max_abs_err": out["worst"]}))
+    print(smi())
+    return 0
+
+
+# ---------------------------------------------------- phase 11: engine modes
+# tests/test_pipeline.py's scenario (tests/torch_engine_cases.py MODES_*):
+# 300 clients, 4 groups, 60 participants, 30 rounds, two partitions
+MODES_POP = dict(n_clients=300, n_groups=4, group_sep=0.0, dirichlet=3.0,
+                 label_conflict=1.0, seed=5)
+MODES_FL = dict(rounds=30, participants_per_round=60, eval_every=29,
+                use_availability=False, seed=5)
+MODES_AUXO = dict(d_sketch=64, cluster_k=2, max_cohorts=3, clustering_start_frac=0.03,
+                  partition_start_frac=0.08, partition_end_frac=0.9, min_members=6,
+                  margin_threshold=0.35)
+# the population plane at full width: benchmarks/population_scale.py's full
+# engine (1M clients, the chunked store, the streaming procedural plane) plus
+# its store sweep's churn (~100 departures a round at 1M); only rounds cut
+POP_PLANE = dict(n_groups=4, group_sep=0.0, dirichlet=3.0, label_conflict=1.0, seed=7)
+POP_FL = dict(participants_per_round=200, population_store=True, availability_mode="chunked",
+              use_availability=True, eval_every=10**9, seed=7)
+POP_AUXO = dict(d_sketch=64, cluster_k=2, max_cohorts=4, clustering_start_frac=0.0,
+                partition_start_frac=0.3, partition_end_frac=0.9, min_members=10)
+POP_ROUNDS = 6
+POP_SIZES = (100_000, 1_000_000)
+ROUND_KERNELS = ("cosine_similarity", "segment_aggregate")
+WIDE_MLP = (1024, 4)  # 11b's wide MLP (hidden, depth): 3.2M params a client
+
+
+def modes_engine(pop, fl=MODES_FL, auxo=MODES_AUXO, **kw):
+    from repro_torch.fl import AuxoConfig, AuxoEngine, FLConfig, MLPTask
+
+    return AuxoEngine(MLPTask(dim=pop.dim, n_classes=pop.n_classes), pop, FLConfig(**{**fl, **kw}),
+                      AuxoConfig(**auxo), device="cuda")
+
+
+def run_stale_sync(torch, eng, rounds: int):
+    """tests/torch_engine_cases.py's oracle with ``torch.cuda.synchronize()``
+    after every dispatch: the overlapped schedule's host order (round r
+    planned before round r-1's feedback, flush on partition) on a
+    synchronous pipeline, every result read eagerly."""
+    p = eng.pipeline
+    p.host_control = True
+    staged = inflight = None
+    for r in range(rounds):
+        prev, inflight = inflight, None
+        if staged is not None and staged[0] == r:
+            _, plan, packed = staged
+        else:
+            _, plan, packed = p._plan_and_pack(r)
+        staged = None
+        res = p.execute(plan, packed) if plan is not None else None
+        torch.cuda.synchronize()
+        if res is not None:
+            res.sketches, res.losses
+        events = prev is not None and p.apply_feedback(*prev)
+        if plan is not None:
+            if events:
+                p.apply_feedback(plan, res)
+            else:
+                inflight = (plan, res)
+        staged = p._plan_and_pack(r + 1)
+    if inflight is not None:
+        p.apply_feedback(*inflight)
+    return eng
+
+
+class Launches:
+    """Launch counts of the round kernels per path: ``with counts(path):``
+    sets both wrappers' counts to 0 just before and adds them just after."""
+
+    def __init__(self, cs, sa):
+        self.mods = {"cosine_similarity": cs, "segment_aggregate": sa}
+        self.by_path = {}
+
+    def __call__(self, path):
+        import contextlib
+
+        @contextlib.contextmanager
+        def window():
+            for m in self.mods.values():
+                m.launches = 0
+            yield
+            acc = self.by_path.setdefault(path, dict.fromkeys(self.mods, 0))
+            for name, m in self.mods.items():
+                acc[name] += m.launches
+
+        return window()
+
+    def check(self):
+        for path, n in self.by_path.items():
+            if min(n.values()) <= 0:
+                raise AssertionError(f"engine modes: a round kernel never launched on {path}: {n}")
+
+
+def bank_diff(torch, ea, eb):
+    """Names of bank tensors (params, optimizer state) that differ."""
+    _, fa = bank_digest(ea)
+    _, fb = bank_digest(eb)
+    return [k for k in fa if not torch.equal(fa[k], fb[k])]
+
+
+def sync_calls(torch, fn):
+    """fn() under PyTorch's sync debug mode "warn": returns (fn's result,
+    [file:line of each call that synchronized with the card])."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as ws:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in ws
+                 if "synchroniz" in str(w.message)]
+
+
+def initialized_clusterers(eng) -> int:
+    return sum(bool(cl.state.initialized) for cl in eng.coordinator.clusterers.values())
+
+
+def stepped(torch, rounds: int, overlap: int, hidden: int = 64, depth: int = 2,
+            count_syncs: bool = False):
+    """The main run's engine (openimage-like, ``MLPTask(hidden, depth)``)
+    stepped ``rounds`` times, no evaluation: s/round of the steps alone, or
+    with ``count_syncs`` (not timed: the debug mode costs time) the calls
+    that synchronized with the card per round, each round marked as a flush
+    (a partition drained the pipeline), a k-means bootstrap (a clusterer
+    started) or steady."""
+    from repro_torch.data import make_population
+    from repro_torch.fl import AuxoConfig, AuxoEngine, FLConfig, MLPTask
+
+    pop = make_population(**POP)
+    eng = AuxoEngine(MLPTask(dim=pop.dim, n_classes=pop.n_classes, hidden=hidden, depth=depth), pop,
+                     FLConfig(rounds=ROUNDS, participants_per_round=100, use_availability=True,
+                              seed=1, round_overlap=overlap), AuxoConfig(**AUXO), device="cuda")
+    syncs, kinds = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        if count_syncs:
+            n_init, n_flush = initialized_clusterers(eng), eng.pipeline.flushes
+            _, calls = sync_calls(torch, lambda: eng.step(r))
+            syncs.append(calls)
+            kinds.append("flush" if eng.pipeline.flushes > n_flush else "bootstrap"
+                         if initialized_clusterers(eng) > n_init else "steady")
+        else:
+            eng.step(r)
+    eng.pipeline.flush()
+    torch.cuda.synchronize()
+    return dict(s_round=(time.perf_counter() - t0) / rounds, syncs=syncs, kinds=kinds,
+                stage={k: round(v, 4) for k, v in eng.pipeline.stage_seconds.items()},
+                parts=[(e.parent, e.round_idx) for e in eng.coordinator.partitions])
+
+
+def population_run(torch, n: int, overlap: int, counts):
+    """The full-width population plane: ``POP_ROUNDS`` steps at n clients
+    with churn; host ms per step call (no synchronisation added: under the
+    overlap a step returns with its round in flight)."""
+    from repro_torch.data import ProceduralDataPlane
+    from repro_torch.scale import ChurnStream
+
+    class Counted(ChurnStream):
+        departed = 0
+
+        def step(self, r):
+            dep, arr = super().step(r)
+            self.departed += dep.size
+            return dep, arr
+
+    plane = ProceduralDataPlane(n_clients=n, **POP_PLANE)
+    eng = modes_engine(plane, dict(POP_FL, rounds=POP_ROUNDS), POP_AUXO, round_overlap=overlap)
+    eng.churn = Counted(n, depart_rate=1e-4, return_rate=0.1, seed=7)
+    times = []
+    with counts(f"population {n:,} overlap {overlap}"):
+        torch.cuda.synchronize()
+        for r in range(POP_ROUNDS):
+            t0 = time.perf_counter()
+            eng.step(r)
+            times.append((time.perf_counter() - t0) * 1e3)
+        eng.pipeline.flush()
+        torch.cuda.synchronize()
+    p = eng.pipeline
+    if p.exec_dispatches < POP_ROUNDS:
+        raise AssertionError(f"population {n}: {p.exec_dispatches} dispatches in {POP_ROUNDS} rounds")
+    if not all(bool(torch.isfinite(v).all()) for v in p.bank.params.values()):
+        raise AssertionError(f"population {n}: non-finite bank params")
+    return dict(ms=statistics.median(times[1:]), times=times, plane=plane.data_nbytes,
+                store=eng.store.nbytes, rows=eng.store.n_rows, departed=eng.churn.departed,
+                away=int(eng.store.n_departed), dispatches=p.exec_dispatches,
+                parts=[(e.parent, e.round_idx) for e in eng.coordinator.partitions],
+                stage={k: round(v, 4) for k, v in p.stage_seconds.items()})
+
+
+def engine_modes_phase(torch, ops, ref, cs, sa, sync_secs: float) -> dict:
+    """Phase 11: the sequential oracle (11a), the depth-2 overlap (11b) and
+    the population plane (11c) on the card. Plain versions raise on CUDA
+    tensors throughout; every path's round-kernel launches are counted."""
+    from repro_torch.data import make_population
+
+    counts = Launches(cs, sa)
+    shapes = {"cosine_similarity": {}, "segment_aggregate": {}}
+    undo = [
+        record(cs, "cosine_similarity",
+               lambda x, c, eps=1e-8: (tuple(x.shape), tuple(c.shape), x.dtype),
+               shapes["cosine_similarity"]),
+        record(sa, "segment_aggregate",
+               lambda d, i, k, w=None: (tuple(d.shape), int(k), d.dtype, w is not None),
+               shapes["segment_aggregate"]),
+        forbid_cuda_in_plain(torch, ref),
+    ]
+    rounds = MODES_FL["rounds"]
+    try:
+        # ------------------------------------------- 11a: sequential oracle
+        pop = make_population(**MODES_POP)
+        eb, es = modes_engine(pop), modes_engine(pop, execution="sequential")
+        gaps = []
+        for r in range(rounds):
+            # the oracle starts every round from the batched bank: free runs
+            # drift apart past the tolerance once an ulp-level difference
+            # meets FedYoGi's sign(v - d^2) (tests/test_torch_sequential.py)
+            es.pipeline.bank.params, es.pipeline.bank.opt_state = (
+                eb.pipeline.bank.params, eb.pipeline.bank.opt_state)
+            with counts("11a batched"):
+                eb.step(r)
+            with counts("11a sequential"):
+                es.step(r)
+            gap = 0.0
+            for k, v in eb.pipeline.bank.params.items():
+                w = es.pipeline.bank.params[k]
+                if not torch.allclose(w, v, rtol=1e-4, atol=1e-4):
+                    raise AssertionError(f"11a round {r}: {k} differs batched vs sequential")
+                gap = max(gap, (w - v).abs().max().item())
+            gaps.append(gap)
+        pb = [(e.parent, e.round_idx) for e in eb.coordinator.partitions]
+        if len(pb) != 2 or pb != [(e.parent, e.round_idx) for e in es.coordinator.partitions]:
+            raise AssertionError(f"11a partitions: batched {pb}, sequential "
+                                 f"{[(e.parent, e.round_idx) for e in es.coordinator.partitions]}")
+        if eb.coordinator.tree.leaves() != es.coordinator.tree.leaves():
+            raise AssertionError("11a: leaves differ")
+        if eb.pipeline.exec_dispatches != rounds or es.pipeline.exec_dispatches <= rounds:
+            raise AssertionError(f"11a dispatches {eb.pipeline.exec_dispatches}, "
+                                 f"{es.pipeline.exec_dispatches}")
+        print(f"[modes] 11a sequential oracle, {MODES_POP['n_clients']} clients x {rounds} rounds: "
+              f"partitions {pb} in both; from the same bank each round, max |batched - sequential| "
+              f"{max(gaps):.3e} (rtol 1e-4, atol 1e-4); dispatches batched "
+              f"{eb.pipeline.exec_dispatches}, sequential {es.pipeline.exec_dispatches}", flush=True)
+        del eb, es
+
+        # ------------------------------------------- 11b: depth-2 overlap
+        ea = modes_engine(pop, round_overlap=1)
+        with counts("11b overlap"):
+            for r in range(rounds):
+                ea.step(r)
+            ea.pipeline.flush()
+        with counts("11b stale-sync oracle"):
+            eo = run_stale_sync(torch, modes_engine(pop), rounds)
+        pa = [(e.parent, e.round_idx) for e in ea.coordinator.partitions]
+        if not pa or pa != [(e.parent, e.round_idx) for e in eo.coordinator.partitions]:
+            raise AssertionError(f"11b partitions differ: {pa}")
+        diff = bank_diff(torch, ea, eo)
+        if diff:
+            raise AssertionError(f"11b: overlap vs stale-sync bank differs at {diff}")
+        if not ((ea.pipeline.table.reward == eo.pipeline.table.reward).all()
+                and (ea.fingerprint == eo.fingerprint).all()):
+            raise AssertionError("11b: table.reward or the fingerprints differ")
+        if ea.pipeline.flushes < 1 or ea.pipeline.exec_dispatches != rounds:
+            raise AssertionError(f"11b flushes {ea.pipeline.flushes}, dispatches "
+                                 f"{ea.pipeline.exec_dispatches}")
+        print(f"[modes] 11b overlap vs the stale-sync oracle (a synchronize after every dispatch): "
+              f"bank, table.reward and fingerprints bit-equal; partitions {pa}; flushes "
+              f"{ea.pipeline.flushes}; dispatches {ea.pipeline.exec_dispatches}", flush=True)
+        del ea, eo
+        with counts("11b main run overlap"):
+            eng, hist, secs = run_main(torch, ROUNDS, round_overlap=1)
+        if len(eng.coordinator.tree.leaves()) < 2 or not all(0.0 <= h["acc_mean"] <= 1.0 for h in hist):
+            raise AssertionError("11b main run: fewer than 2 leaves or a bad accuracy")
+        print(f"[modes] 11b run_auxo openimage-like, {ROUNDS} rounds, round_overlap=1: {secs:.3f} s "
+              f"({secs / ROUNDS:.4f} s/round; phase 4 synchronous {sync_secs / ROUNDS:.4f} s/round, "
+              f"evaluation every {max(2, ROUNDS // 20)} rounds included, each one a drain); host stage "
+              f"seconds {eng.pipeline.stage_seconds}; flushes {eng.pipeline.flushes}; partitions "
+              f"{[(e.parent, e.round_idx) for e in eng.coordinator.partitions]}; acc_mean "
+              f"{[round(h['acc_mean'], 4) for h in hist][-3:]}", flush=True)
+        del eng
+        # the detector sees a known synchronizing call (else a count of 0 says nothing)
+        _, canary = sync_calls(torch, lambda: torch.ones(1, device="cuda").item())
+        if len(canary) != 1:
+            raise AssertionError(f"sync debug mode reported {canary} for one .item()")
+        # the steps alone, synchronous then overlapped: the main run's MLP
+        # (the card busy ~5% of a round) and a wide one (hidden 1024, depth
+        # 4: some 0.4 TFLOP a round, device time near the host's)
+        for hidden, depth in ((64, 2), WIDE_MLP):
+            with counts(f"11b steps hidden {hidden}"):
+                st = [stepped(torch, ROUNDS, overlap, hidden, depth) for overlap in (0, 1)]
+            print(f"[modes] 11b steps only (no evaluation), MLP hidden {hidden} depth {depth}, "
+                  f"{ROUNDS} rounds: synchronous {st[0]['s_round']:.4f} s/round (stages "
+                  f"{st[0]['stage']}), overlapped {st[1]['s_round']:.4f} s/round (stages "
+                  f"{st[1]['stage']}) = {st[1]['s_round'] / st[0]['s_round']:.3f}x; partitions "
+                  f"{st[0]['parts']} / {st[1]['parts']}", flush=True)
+        with counts("11b sync count"):
+            ov = stepped(torch, ROUNDS, 1, count_syncs=True)
+        steady = [len(c) for c, k in zip(ov["syncs"], ov["kinds"]) if k == "steady"]
+        where = sorted({w for c, k in zip(ov["syncs"], ov["kinds"]) if k == "steady" for w in c})
+        other = {k: [len(c) for c, kk in zip(ov["syncs"], ov["kinds"]) if kk == k]
+                 for k in ("flush", "bootstrap")}
+        print(f"[modes] 11b synchronizing calls per overlapped round (sync debug mode warn; one "
+              f".item() reads as 1): steady rounds {len(steady)}, calls {steady} (max "
+              f"{max(steady, default=0)}) at {where}; flush rounds {other['flush']}, bootstrap "
+              f"rounds {other['bootstrap']}", flush=True)
+
+        # ------------------------------------------ 11c: population plane
+        pops = {}
+        for n in POP_SIZES:
+            for overlap in (0, 1):
+                pops[(n, overlap)] = row = population_run(torch, n, overlap, counts)
+                print(f"[modes] 11c N={n:,} overlap {overlap}: {row['ms']:.2f} ms/round (median of "
+                      f"rounds 1-{POP_ROUNDS - 1}; all {[round(t, 2) for t in row['times']]}); plane "
+                      f"{row['plane']:,} B, store {row['store']:,} B, touched rows {row['rows']:,}, "
+                      f"departures {row['departed']} ({row['away']} away at the end), dispatches "
+                      f"{row['dispatches']}, partitions {row['parts']}, launches "
+                      f"{counts.by_path[f'population {n:,} overlap {overlap}']}, stage seconds "
+                      f"{row['stage']}", flush=True)
+        for overlap in (0, 1):
+            ratio = pops[(POP_SIZES[1], overlap)]["plane"] / pops[(POP_SIZES[0], overlap)]["plane"]
+            if ratio > 1.5:
+                raise AssertionError(f"11c: plane bytes scale with N (x{ratio:.2f}, overlap {overlap})")
+        # tests/test_population_scale.py's store-versus-dense scenario
+        for overlap in (0, 1):
+            with counts(f"11c store vs dense overlap {overlap}"):
+                dense = modes_engine(pop, round_overlap=overlap)
+                store = modes_engine(pop, round_overlap=overlap, population_store=True)
+                for e in (dense, store):
+                    for r in range(rounds):
+                        e.step(r)
+                    e.pipeline.flush()
+            diff = bank_diff(torch, dense, store)
+            rw, _, _ = store.pipeline.table.to_dense(MODES_POP["n_clients"])
+            if diff or not (rw == dense.pipeline.table.reward).all():
+                raise AssertionError(f"11c store vs dense (overlap {overlap}) differs at {diff}")
+        print(f"[modes] 11c store vs dense ({MODES_POP['n_clients']} clients, {rounds} rounds), sync "
+              f"and overlap: banks and reward tables bit-equal", flush=True)
+    finally:
+        for u in undo:
+            u()
+    counts.check()
+    worst = check_rows(torch, ops, ref, list(shapes["cosine_similarity"]),
+                       list(shapes["segment_aggregate"]))
+    print(f"[modes] launches by path {counts.by_path}", flush=True)
+    print(f"[modes] {len(shapes['cosine_similarity'])} cosine and {len(shapes['segment_aggregate'])} "
+          f"segment call shapes of phase 11 held against the plain version: max |err| {worst}",
+          flush=True)
+    total = {k: sum(n[k] for n in counts.by_path.values()) for k in ROUND_KERNELS}
+    return dict(launches=total, by_path=counts.by_path, worst=worst, steady_syncs=steady,
+                sync_sites=where)
+
+
+def engine_modes_only(torch) -> int:
+    """``--engine-modes``: build, phase 4's synchronous main run (the s/round
+    that 11b is printed beside), then phase 11 alone."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import segment_aggregate as sa
+
+    print(smi())
+    so = build.build()
+    print(f"[build] {so}")
+    run_main(torch, 2)  # warm-up: the first run also pays the card's and the libraries' start
+    _, _, secs = run_main(torch, ROUNDS)
+    print(f"[main] run_auxo openimage-like, {ROUNDS} rounds, synchronous: {secs / ROUNDS:.4f} s/round")
+    out = engine_modes_phase(torch, ops, ref, cs, sa, secs)
+    print(json.dumps({"engine_modes_launches": out["by_path"], "max_abs_err": out["worst"],
+                      "steady_syncs": out["steady_syncs"], "sync_sites": out["sync_sites"]}))
     print(smi())
     return 0
 
@@ -1238,6 +1632,8 @@ def main(argv) -> int:
         return kernel_timing_only(torch)
     if "--lm-train" in argv:
         return lm_only(torch)
+    if "--engine-modes" in argv:
+        return engine_modes_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -1420,6 +1816,15 @@ def main(argv) -> int:
     seg["lm_launches"] = lm["launches"]
     seg["lm_rows"] = lm["rows"]
     seg["max_abs_err"] = max(seg["max_abs_err"], lm["worst"])
+
+    # ------------------------------------------------- phase 11: engine modes
+    gc.collect()
+    torch.cuda.empty_cache()
+    modes = engine_modes_phase(torch, ops, ref, cs, sa, secs)
+    for r in report:
+        if r["name"] in ROUND_KERNELS:
+            r["engine_modes_launches"] = modes["launches"][r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], modes["worst"][r["name"]])
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

@@ -7,7 +7,9 @@ the prototypes with an EMA. The cosine similarities and segment sums go
 through ``kernels.ops`` (CUDA kernels on the card). JAX's ``vmap`` over
 cohorts and k-means restarts becomes a leading batch axis: one kernel
 launch serves every cohort and restart of a call. State tensors live on
-the engine's device.
+the engine's device; the host control plane of the overlapped round
+(``assign_and_update_np``, ``_cosine_np``) keeps a state's leaves as numpy
+arrays instead (``host_state``), so stage ③ never waits on the card.
 """
 from __future__ import annotations
 
@@ -63,6 +65,19 @@ class ClusterState:
             initialized=torch.zeros((), dtype=torch.bool, device=device),
             round=torch.zeros((), dtype=torch.int32, device=device),
         )
+
+
+def host_array(a) -> np.ndarray:
+    """A state leaf as a numpy array: a tensor is copied to the host (a
+    device tensor waits for the card), a numpy leaf passes through."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def host_state(state: ClusterState) -> ClusterState:
+    """``state`` with numpy leaves (the host control plane's form)."""
+    return ClusterState(**{
+        f.name: host_array(getattr(state, f.name)) for f in dataclasses.fields(ClusterState)
+    })
 
 
 def stack_states(states: Sequence[ClusterState]) -> ClusterState:
@@ -210,6 +225,84 @@ def assign_and_update(
     return unstack_states(st, 1)[0], a[0], s[0]
 
 
+def _cosine_np(x: np.ndarray, c: np.ndarray, eps: float = 1e-8) -> np.ndarray:
+    """Numpy twin of kernels.ref.cosine_similarity: (P,D),(K,D) -> (P,K)."""
+    x = np.asarray(x, np.float32)
+    c = np.asarray(c, np.float32)
+    dots = x @ c.T
+    xn = np.linalg.norm(x, axis=1, keepdims=True)
+    cn = np.linalg.norm(c, axis=1, keepdims=True)
+    return dots / np.maximum(xn * cn.T, eps)
+
+
+def assign_and_update_np(
+    state: ClusterState, sketches: np.ndarray, mask=None, ema: float = 0.3
+) -> Tuple[ClusterState, np.ndarray, np.ndarray]:
+    """Numpy twin of ``assign_and_update`` for the HOST control plane
+    (verbatim copy of the JAX package's twin).
+
+    The §⑤ overlapped round pipeline keeps stage ③ on the host: a kernel
+    launch here would queue behind the in-flight fused round step and its
+    result fetch would serialize the pipeline. The per-round arrays are
+    tiny ((P ≤ 64, d_sketch) per cohort). Same math as the device path,
+    ulp-level float differences aside; returns a ClusterState with numpy
+    leaves (a tensor state is copied to the host first).
+    """
+    state = host_state(state)
+    x = np.asarray(sketches, np.float32)
+    cents = np.asarray(state.centroids, np.float32)
+    k = cents.shape[0]
+    m = (
+        np.ones((x.shape[0],), np.float32)
+        if mask is None
+        else np.asarray(mask, np.float32)
+    )
+    tot = max(float(m.sum()), 1.0)
+    mu = (x * m[:, None]).sum(0, keepdims=True) / tot
+    xc = x - mu
+    xn = xc / (np.linalg.norm(xc, axis=-1, keepdims=True) + 1e-8)
+    sims = _cosine_np(xn, cents)  # (P, K)
+    assign = np.argmax(sims, axis=1).astype(np.int32)
+
+    onehot = (assign[:, None] == np.arange(k)[None, :]).astype(np.float32)
+    wcol = onehot * m[:, None]  # (P, K)
+    sums = wcol.T @ xn  # (K, d)
+    counts = wcol.sum(0)  # (K,)
+    batch_cent = np.where(
+        counts[:, None] > 0, sums / np.maximum(counts[:, None], 1.0), cents
+    )
+    new_cents = (1 - ema) * cents + ema * batch_cent
+    new_cents /= np.linalg.norm(new_cents, axis=-1, keepdims=True) + 1e-8
+
+    rows = np.arange(x.shape[0])
+    picked = sims[rows, assign]
+    disp = 1.0 - float((picked * m).sum()) / tot
+    new_disp = 0.8 * np.float32(state.dispersion) + 0.2 * np.float32(disp)
+
+    others = np.where(onehot.astype(bool), -np.inf, sims)
+    second = others.max(axis=1)
+    second = np.where(np.isfinite(second), second, picked)
+    marg = float(((picked - second) * m).sum()) / tot
+    new_margin = 0.8 * np.float32(state.margin) + 0.2 * np.float32(marg)
+
+    per_cl = (onehot * ((1.0 - picked) * m)[:, None]).sum(0)
+    old_cl = np.asarray(state.cluster_dispersion, np.float32)
+    per_cl = np.where(counts > 0, per_cl / np.maximum(counts, 1.0), old_cl)
+    new_cl_disp = np.where(counts > 0, 0.8 * old_cl + 0.2 * per_cl, old_cl)
+
+    new_state = dataclasses.replace(
+        state,
+        centroids=new_cents.astype(np.float32),
+        counts=np.asarray(state.counts, np.float32) + counts,
+        round_counts=0.7 * np.asarray(state.round_counts, np.float32) + 0.3 * counts,
+        dispersion=np.float32(new_disp),
+        margin=np.float32(new_margin),
+        cluster_dispersion=new_cl_disp.astype(np.float32),
+        round=np.asarray(state.round, np.int32) + 1,
+    )
+    return new_state, assign, sims
+
+
 def population_heterogeneity(sketches: torch.Tensor, mask=None) -> torch.Tensor:
     """Eq. (1) intra-heterogeneity J: variance around the masked mean."""
     x = sketches.float()
@@ -259,10 +352,10 @@ class OnlineClustering:
         return int(self.state.round)
 
     def cluster_sizes(self) -> np.ndarray:
-        return self.state.round_counts.cpu().numpy()
+        return host_array(self.state.round_counts)
 
     def cluster_dispersions(self) -> np.ndarray:
-        return self.state.cluster_dispersion.cpu().numpy()
+        return host_array(self.state.cluster_dispersion)
 
     @property
     def margin(self) -> float:

@@ -1,11 +1,12 @@
 """Cohort coordinator (paper §3.2, §5): matching, partition, resilience.
 
-Port of ``repro.core.coordinator`` for the synchronous round: per round it
-matches client affinity requests to leaf cohorts, runs the clustering
-feedback of every leaf cohort as one batched pass on the device
-(``feedback_all``), evaluates the Lemma-4.1 partition criteria, spawns
-child cohorts and blacklists repeat affinity-claim offenders. Checkpoint
-and soft-state recovery come with the checkpoint slice.
+Port of ``repro.core.coordinator``: per round it matches client affinity
+requests to leaf cohorts, runs the clustering feedback of every leaf
+cohort (``feedback_all``: one batched pass on the device, per-cohort calls
+for the sequential oracle, or numpy twins on the host for the overlapped
+round), evaluates the Lemma-4.1 partition criteria, spawns child cohorts
+and blacklists repeat affinity-claim offenders. Checkpoint and soft-state
+recovery come with the checkpoint slice.
 """
 from __future__ import annotations
 
@@ -18,15 +19,19 @@ import torch
 from repro_torch import random as rnd
 from repro_torch import resolve_device
 from repro_torch.core.clustering import (
+    ClusterState,
     OnlineClustering,
     assign_and_update_batched,
+    assign_and_update_np,
+    host_array,
+    host_state,
     kmeans_bootstrap_batched,
     stack_states,
     unstack_states,
 )
 from repro_torch.core.cohort import CohortTree
 from repro_torch.core.criteria import PartitionCriteria
-from repro_torch.core.selection import instant_reward_batched
+from repro_torch.core.selection import instant_reward, instant_reward_batched, instant_reward_np
 
 
 def _population_heterogeneity_np(sk: np.ndarray, m: np.ndarray) -> float:
@@ -100,6 +105,15 @@ class CohortCoordinator:
         self.strikes: Dict[int, int] = {}
         self.blacklist: set = set()
         self.partitions: List[PartitionEvent] = []
+        self.host_states = False  # clusterer states held as numpy leaves
+
+    def use_host_states(self):
+        """Hold every clusterer's state as numpy leaves from now on, new
+        children's too (the overlapped round's host control plane): reading
+        a device state in stage ③ would wait on the round in flight."""
+        self.host_states = True
+        for cl in self.clusterers.values():
+            cl.state = host_state(cl.state)
 
     # ---------------------------------------------------------------- match
     def match_request(
@@ -129,7 +143,7 @@ class CohortCoordinator:
             elif fingerprint is not None:
                 cl = self.clusterers.get(node.cohort_id)
                 if cl is not None and bool(cl.state.initialized):
-                    cents = cl.state.centroids.cpu().numpy()
+                    cents = host_array(cl.state.centroids)
                     sims = cents @ np.asarray(fingerprint, np.float32)
                     idx = int(np.argmax(sims[: len(node.children)]))
             if idx is None:
@@ -179,33 +193,47 @@ class CohortCoordinator:
         self,
         cohort_ids: Sequence[str],
         client_ids_list: Sequence[Sequence[int]],
-        sketches: torch.Tensor,
-        masks: torch.Tensor,
+        sketches,
+        masks,
         round_idx: int,
         total_rounds: int,
         claimed_list: Optional[Sequence[Sequence[bool]]] = None,
+        batched: bool = True,
+        backend: str = "device",
     ) -> List[CohortRoundFeedback]:
         """Batched ④-feedback for ALL leaf cohorts of a round (§3.2 stage 4).
 
-        sketches: (C, P, d) stacked per-cohort fingerprint batches on the
-        device, masks: (C, P); row i of cohort c is client_ids_list[c][i].
-        The assignment + EMA refresh of every initialized cohort and the
-        instant rewards run as one batched pass (one kernel launch per
-        primitive for all cohorts); cohorts bootstrapping this round run
-        one batched k-means. Partition criteria are evaluated in cohort
-        order with events applied immediately.
+        sketches: (C, P, d) stacked per-cohort fingerprint batches, masks:
+        (C, P); row i of cohort c is client_ids_list[c][i]. Partition
+        criteria are evaluated in cohort order with events applied
+        immediately.
+
+        backend="device" takes device tensors: the assignment + EMA refresh
+        of every initialized cohort and the instant rewards run as one
+        batched pass (one kernel launch per primitive for all cohorts), or
+        as per-cohort calls with ``batched=False`` (the sequential oracle).
+        backend="host" (the §⑤ overlapped round) takes numpy arrays and runs
+        the steady-state clustering and rewards as numpy twins, states kept
+        as numpy leaves: a launch here would queue behind the in-flight
+        round step. In both backends the once-per-cohort-lifetime k-means
+        bootstrap runs on the device (rare, and worth the kernel).
         """
         C = len(cohort_ids)
         results: List[CohortRoundFeedback] = []
         if C == 0:
             return results
+        host = backend == "host"
         frac = round_idx / max(total_rounds, 1)
         cluster_on = frac >= self.clustering_start_frac
         P = int(sketches.shape[1])
         # one host copy for the per-cohort numpy paths (identity refresh,
         # heterogeneity stats)
-        sk_host = sketches.float().cpu().numpy()
-        mask_host = masks.float().cpu().numpy()
+        if host:
+            sk_host = np.asarray(sketches, np.float32)
+            mask_host = np.asarray(masks, np.float32)
+        else:
+            sk_host = sketches.float().cpu().numpy()
+            mask_host = masks.float().cpu().numpy()
         n_by = [len(ids) for ids in client_ids_list]
 
         assigns = np.full((C, P), -1, np.int32)
@@ -215,10 +243,13 @@ class CohortCoordinator:
                 if n_by[i] > 0 and not bool(self.clusterers[cid].state.initialized)
             ]
             ready_idx = [i for i in range(C) if n_by[i] > 0 and i not in set(init_idx)]
+            if init_idx and host:  # the bootstrap's inputs, on the device
+                sketches = torch.from_numpy(sk_host).to(self.device)
+                masks = torch.from_numpy(mask_host).to(self.device)
             # once-per-cohort-lifetime k-means bootstrap: one batched run
             # for all cohorts bootstrapping this round; each cohort's own
             # key stream is consumed exactly like a solo `step` call
-            if len(init_idx) > 1:
+            if batched and len(init_idx) > 1:
                 subs = []
                 for i in init_idx:
                     cl = self.clusterers[cohort_ids[i]]
@@ -242,7 +273,19 @@ class CohortCoordinator:
                 for i in init_idx:
                     a, _ = self.clusterers[cohort_ids[i]].step(sketches[i], masks[i])
                     assigns[i] = a
-            if ready_idx:
+            if host:
+                for i in init_idx:
+                    cl = self.clusterers[cohort_ids[i]]
+                    cl.state = host_state(cl.state)
+            # every initialized cohort: numpy twins on the host backend,
+            # one batched pass, or per-cohort calls
+            if ready_idx and host:
+                ema = self.clusterers[cohort_ids[ready_idx[0]]].ema
+                for i in ready_idx:
+                    cl = self.clusterers[cohort_ids[i]]
+                    cl.state, a, _sims = assign_and_update_np(cl.state, sk_host[i], mask_host[i], ema)
+                    assigns[i] = a
+            elif ready_idx and batched:
                 stacked = stack_states([self.clusterers[cohort_ids[i]].state for i in ready_idx])
                 sel = torch.as_tensor(ready_idx, device=sketches.device)
                 ema = self.clusterers[cohort_ids[ready_idx[0]]].ema
@@ -254,9 +297,21 @@ class CohortCoordinator:
                 for j, i in enumerate(ready_idx):
                     self.clusterers[cohort_ids[i]].state = states[j]
                     assigns[i] = a[j]
+            elif ready_idx:
+                for i in ready_idx:
+                    a, _ = self.clusterers[cohort_ids[i]].step(sketches[i], masks[i])
+                    assigns[i] = a
 
-        # instant rewards for all cohorts in one batched pass
-        deltas = instant_reward_batched(sketches, masks)[0].cpu().numpy()
+        # instant rewards for all cohorts: numpy twins on the host backend,
+        # one batched pass, or per-cohort calls
+        if host:
+            deltas = np.stack([instant_reward_np(sk_host[i], mask_host[i])[0] for i in range(C)])
+        elif batched:
+            deltas = instant_reward_batched(sketches, masks)[0].cpu().numpy()
+        else:
+            deltas = np.stack(
+                [instant_reward(sketches[i], masks[i])[0].cpu().numpy() for i in range(C)]
+            )
 
         for i, cid in enumerate(cohort_ids):
             ids = list(client_ids_list[i])
@@ -325,7 +380,7 @@ class CohortCoordinator:
         if not ok:
             return None
         children = self.tree.partition(cohort_id, self.cluster_k)
-        parent_cents = clusterer.state.centroids.cpu().numpy()
+        parent_cents = host_array(clusterer.state.centroids)
         for i, ch in enumerate(children):
             # hash() of a str is randomized per process: comparisons with
             # the JAX package run in one process
@@ -333,6 +388,10 @@ class CohortCoordinator:
                 self.cluster_k, self.d_sketch, seed=self.seed + hash(ch) % 10_000,
                 device=self.device,
             )
+            if self.host_states:
+                self.clusterers[ch].state = host_state(
+                    ClusterState.create(self.cluster_k, self.d_sketch, "cpu")
+                )
             # child identity starts as the parent's cluster prototype
             self.identity[ch] = parent_cents[i].copy()
             self.stats[ch] = CohortStats(

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -30,6 +31,27 @@ def instant_reward_batched(sketches: torch.Tensor, mask: torch.Tensor) -> Tuple[
     thr = mean_d + torch.sqrt(torch.clamp(var_d, min=0.0))
     delta = 1.0 - d / torch.clamp(thr, min=1e-9)
     return delta, d
+
+
+def instant_reward_np(sketches: np.ndarray, mask=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Numpy twin of ``instant_reward`` for the HOST control plane (§⑤):
+    stage ③ of the overlapped round pipeline avoids kernel launches, which
+    would queue behind the in-flight fused step. Verbatim copy of the JAX
+    package's twin."""
+    x = np.asarray(sketches, np.float32)
+    m = (
+        np.ones((x.shape[0],), np.float32)
+        if mask is None
+        else np.asarray(mask, np.float32)
+    )
+    tot = max(float(m.sum()), 1.0)
+    center = (x * m[:, None]).sum(0, keepdims=True) / tot
+    d = np.linalg.norm(x - center, axis=1)
+    mean_d = float((d * m).sum()) / tot
+    var_d = float((m * (d - mean_d) ** 2).sum()) / tot
+    thr = mean_d + np.sqrt(max(var_d, 0.0))
+    delta = 1.0 - d / max(thr, 1e-9)
+    return delta.astype(np.float32), d
 
 
 def instant_reward(sketches: torch.Tensor, mask=None) -> Tuple[torch.Tensor, torch.Tensor]:

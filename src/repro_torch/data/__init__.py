@@ -7,7 +7,12 @@ from repro_torch.data.datasets import (
     draw_structure,
     make_population,
 )
-from repro_torch.data.plane import DataPlane, MaterializedDataPlane, as_plane
+from repro_torch.data.plane import (
+    DataPlane,
+    MaterializedDataPlane,
+    ProceduralDataPlane,
+    as_plane,
+)
 
 __all__ = [
     "AvailabilityTrace",
@@ -15,6 +20,7 @@ __all__ = [
     "DeviceSpeeds",
     "FederatedClassification",
     "MaterializedDataPlane",
+    "ProceduralDataPlane",
     "PopulationStructure",
     "as_plane",
     "draw_structure",

@@ -1,19 +1,23 @@
 """Multi-cohort FL engine: the Auxo lifecycle (paper Fig. 6), on PyTorch.
 
-Port of ``repro.fl.engine`` for the synchronous single-device round. Per
-global round (``fl/pipeline.py``): ① matching, ②③ local training +
-masked aggregation + server optimizer for every leaf cohort over the
-stacked CohortBank, ④ clustering feedback, rewards and partitions.
-Wall-clock is simulated from device-speed traces; resource = client·steps.
+Port of ``repro.fl.engine`` on one device. Per global round
+(``fl/pipeline.py``): ① matching, ②③ local training + masked aggregation
++ server optimizer for every leaf cohort over the stacked CohortBank, ④
+clustering feedback, rewards and partitions. Wall-clock is simulated from
+device-speed traces; resource = client·steps.
+
+Modes, as in the JAX package: ``FLConfig.execution="sequential"`` (the
+per-cohort reference oracle), ``round_overlap=1`` (the §⑤ depth-2 round
+overlap; ``run``/``evaluate`` drain it first), and ``population_store``
+(§⑥: per-client soft state in a chunked ``PopulationStore``, streaming
+availability, churn through ``apply_churn`` or an attached ``churn``
+stream, ``warm_rearrivals``). Cohort sharding and ``ftfa_eval`` come with
+later slices.
 
 The engine runs on ``device`` (default "cuda"; constructing it without a
 device on a host without CUDA raises). ``init_params`` (a dict of numpy
 arrays) overrides the seeded init, so that a run can start from the JAX
 package's exact initial weights.
-
-Not in this slice: the sequential oracle, round overlap, cohort sharding
-and the population store (their config values raise
-``NotImplementedError``), churn and ``ftfa_eval``.
 """
 from __future__ import annotations
 
@@ -34,7 +38,14 @@ from repro_torch.data.availability import AvailabilityTrace, DeviceSpeeds
 from repro_torch.data.plane import DataPlane, as_plane
 from repro_torch.fl.algorithms import make_server_opt
 from repro_torch.fl.client import local_train
-from repro_torch.fl.pipeline import LATER, RoundPipeline
+from repro_torch.fl.pipeline import RoundPipeline, bank_capacity
+from repro_torch.scale import (
+    ClientField,
+    DictProbeCache,
+    StoreProbeCache,
+    StreamingAvailability,
+    make_client_store,
+)
 
 
 @dataclasses.dataclass
@@ -53,18 +64,27 @@ class FLConfig:
     speed_sigma: float = 0.6
     eval_every: int = 5
     seed: int = 0
-    # "batched" = one fused step per round; "sequential" is a later slice
+    # "batched" = one fused step per round; "sequential" = per-cohort
+    # training launches (the reference oracle)
     execution: str = "batched"
-    # 0 = synchronous rounds; the depth-2 overlap is a later slice
+    # §⑤ 0 = synchronous rounds; 1 = depth-2 overlap (round r+1 planned
+    # against one-round-stale tables while the card runs round r;
+    # partitions flush). Requires execution="batched".
     round_overlap: int = 0
     # cohort-parallel placement over several devices: a later slice
     cohort_shards: int = 0
     rows_per_shard: int = 0
     # a client id may hold at most ONE kept row per round unless set
     allow_cross_cohort_duplicates: bool = False
-    # chunked population store (+ churn, warm re-arrivals): a later slice
+    # §⑥ keep per-client soft state in a chunked PopulationStore (memory
+    # scales with the touched clients; churn becomes possible); small-N
+    # runs are bit-for-bit the dense path
     population_store: bool = False
+    # availability under population_store: "compat" = the dense draw,
+    # "chunked" = per-chunk Poisson thinning (the million-client mode)
     availability_mode: str = "compat"
+    # re-arrivals check in at their probe fingerprint's nearest-identity
+    # leaf instead of re-exploring cold (needs population_store)
     warm_rearrivals: bool = False
     # resilience knobs (§7.5)
     corrupt_frac: float = 0.0
@@ -112,24 +132,6 @@ class CohortModel:
     rounds: int = 0
 
 
-class DictProbeCache(dict):
-    """Plain-dict probe-fingerprint cache (copy of the JAX package's)."""
-
-    def missing(self, cs) -> np.ndarray:
-        return np.array([c for c in cs if int(c) not in self], np.int64)
-
-    def put(self, cs, rows: np.ndarray):
-        for j, c in enumerate(cs):
-            self[int(c)] = rows[j]
-
-    def get_many(self, cs) -> np.ndarray:
-        return np.stack([self[int(c)] for c in cs])
-
-    def drop(self, cs):
-        for c in cs:
-            self.pop(int(c), None)
-
-
 class AuxoEngine:
     def __init__(
         self,
@@ -141,8 +143,6 @@ class AuxoEngine:
         device=None,
         init_params: Optional[Dict[str, np.ndarray]] = None,
     ):
-        if fl.population_store or fl.warm_rearrivals:
-            raise NotImplementedError(f"population_store / warm_rearrivals: {LATER}")
         self.device = resolve_device(device)
         self.task = task
         self.data: DataPlane = as_plane(population)
@@ -183,7 +183,20 @@ class AuxoEngine:
         else:
             strat = "full_proj" if self.auxo.sketch_strategy == "auto" else self.auxo.sketch_strategy
             self.sketcher = GradientSketcher(d_sketch=self.auxo.d_sketch, strategy=strat)
-        self.trace = AvailabilityTrace(self.data.n_clients, seed=fl.seed)
+        # §⑥ population plane: chunked client-state store + streaming
+        # availability (compat mode = bit-equal dense draws). Dense mode
+        # keeps plain numpy arrays; the facades below index identically.
+        if fl.population_store:
+            self.store = make_client_store(
+                self.data.n_clients, self.auxo.d_sketch, bank_capacity(self.auxo)[0]
+            )
+            self.trace = StreamingAvailability(
+                self.data.n_clients, seed=fl.seed, mode=fl.availability_mode
+            )
+        else:
+            self.store = None
+            self.trace = AvailabilityTrace(self.data.n_clients, seed=fl.seed)
+        self.churn = None  # optional ChurnStream, applied per step()
         self.speeds = DeviceSpeeds(self.data.n_clients, sigma=fl.speed_sigma, seed=fl.seed)
         n_corrupt = int(fl.corrupt_frac * self.data.n_clients)
         self.corrupted = (
@@ -194,14 +207,23 @@ class AuxoEngine:
         self.resource_used = 0.0  # client local steps × batch (sample count)
         # client-held gradient fingerprints: EMA of centered+normalized
         # per-round sketches (soft state, §5.1); host numpy as in JAX
-        self.fingerprint = np.zeros((self.data.n_clients, self.auxo.d_sketch), np.float32)
-        self.fp_seen = np.zeros(self.data.n_clients, bool)
-        self.neg_streak = np.zeros(self.data.n_clients, np.int32)
+        if self.store is not None:
+            self.fingerprint = ClientField(self.store, "fingerprint")
+            self.fp_seen = ClientField(self.store, "fp_seen")
+            self.neg_streak = ClientField(self.store, "neg_streak")
+        else:
+            self.fingerprint = np.zeros((self.data.n_clients, self.auxo.d_sketch), np.float32)
+            self.fp_seen = np.zeros(self.data.n_clients, bool)
+            self.neg_streak = np.zeros(self.data.n_clients, np.int32)
         self.fp_beta = 0.4
         # cross-cohort sketch mean EMA (the global centering reference)
         self.global_mu = np.zeros(self.auxo.d_sketch, np.float32)
         self.global_mu_seen = False
-        self._probe_cache = DictProbeCache()
+        # serve-time probe fingerprints, cached across evaluate calls and
+        # invalidated when the tree partitions
+        self._probe_cache = (
+            StoreProbeCache(self.store) if self.store is not None else DictProbeCache()
+        )
         self._probe_cache_key = -1
         self.probe_train_dispatches = 0  # batched probe trainings run
         self.pipeline = RoundPipeline(self, mode=fl.execution)
@@ -228,17 +250,54 @@ class AuxoEngine:
         slot = self.pipeline.table.preferred_slot(c, slots)
         return None if slot is None else bank.id_of[slot]
 
+    # ------------------------------------------------------- stage ② rows
+    def _train_cohort(self, params, xs, ys, keys):
+        """One cohort's local training (the sequential oracle): unstacked
+        ``params`` trained on every row of xs (R, steps, batch, ...) ->
+        (deltas (R, ...), losses (R,))."""
+        fl = self.fl
+        rows = {k: v[None].expand((xs.shape[0],) + tuple(v.shape)) for k, v in params.items()}
+        return local_train(
+            self.task.loss, rows, xs, ys, keys, lr=fl.lr, prox_mu=fl.prox_mu,
+            dp_clip=fl.dp_clip, dp_sigma=fl.dp_sigma,
+        )
+
     # ------------------------------------------------------------------ API
     def run(self) -> List[Dict[str, Any]]:
         for r in range(self.fl.rounds):
             self.step(r)
             if r % self.fl.eval_every == 0 or r == self.fl.rounds - 1:
                 self.history.append(self.evaluate(r))
+        # §⑤: retire any round still in flight so post-run state is final
+        self.pipeline.flush()
         return self.history
 
     def step(self, r: int):
         """One global round: MatchPlan → BatchedExecution → FeedbackBatch."""
+        if self.churn is not None:
+            departures, arrivals = self.churn.step(r)
+            self.apply_churn(departures, arrivals)
         self.pipeline.run_round(r)
+
+    # ------------------------------------------------------------ §⑥ churn
+    def apply_churn(self, departures=(), arrivals=()):
+        """Dynamic population: departures lose ALL server-held soft state
+        (affinity records, fingerprint EMA, probe cache: the §5.2
+        soft-state-loss semantics) and leave the sampling population;
+        arrivals (or re-arrivals) join cold. With round overlap a departure
+        can lag one in-flight round, like any staleness of the §⑤ schedule.
+        Blacklist entries are identity-level and survive."""
+        if self.store is None:
+            raise ValueError("churn requires FLConfig.population_store=True")
+        departures = np.asarray(departures, np.int64)
+        arrivals = np.asarray(arrivals, np.int64)
+        # drop cached probe fingerprints FIRST: a re-arrival with the same
+        # id must re-probe cold
+        self._probe_cache.drop(np.concatenate([departures, arrivals]))
+        self.store.depart(departures)
+        self.store.arrive(arrivals)
+        # churned ids drop their cached data-plane state (sizes, LRU shards)
+        self.data.invalidate(np.concatenate([departures, arrivals]))
 
     # ----------------------------------------------------------------- eval
     def _probe_fingerprints(self, cs: np.ndarray, root_params=None) -> np.ndarray:
@@ -323,6 +382,9 @@ class AuxoEngine:
         return self.serving_cohorts(np.array([c], np.int64))[0]
 
     def evaluate(self, r: int) -> Dict[str, Any]:
+        # §⑤: retire the in-flight round first (fingerprints, identities and
+        # tables must be consistent with the bank models)
+        self.pipeline.flush()
         leaves = self.coordinator.tree.leaves()
         cohorts = self.cohorts
         serving = self.serving_cohorts()

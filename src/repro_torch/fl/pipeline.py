@@ -1,12 +1,12 @@
-"""The synchronous Auxo round: MatchPlan → BatchedExecution → FeedbackBatch.
+"""The Auxo round: MatchPlan → BatchedExecution → FeedbackBatch.
 
-Port of the synchronous single-device batched path of
-``repro.fl.pipeline``:
+Port of the single-device paths of ``repro.fl.pipeline``:
 
   ① MatchPlan        — ε-greedy + sticky-reward + negative-streak matching
-                       as numpy masks over dense per-(client, cohort-slot)
-                       affinity tables, and ONE fingerprint-vs-leaf-identity
-                       cosine-similarity kernel launch;
+                       as numpy masks over per-(client, cohort-slot)
+                       affinity tables (dense, or a view over the engine's
+                       chunked PopulationStore), and ONE fingerprint-vs-
+                       leaf-identity cosine-similarity kernel launch;
   ② BatchedExecution — participants of every leaf cohort pack along one
                        flat row axis; each row gathers its cohort's params
                        from the stacked CohortBank, local SGD runs for all
@@ -18,32 +18,47 @@ Port of the synchronous single-device batched path of
                        (``algorithms.apply_stacked``);
   ③ FeedbackBatch    — client fingerprint EMAs update on the host, then
                        ``CohortCoordinator.feedback_all`` clusters all
-                       cohorts in one batched pass on the device; rewards,
-                       ExploreReward propagation and partition events apply
-                       as dense table updates.
+                       cohorts in one batched pass; rewards, ExploreReward
+                       propagation and partition events apply as table
+                       updates.
 
-Host↔device copies sit where the JAX package has them: the row buffers go
-to the device once per round, sketches and losses come back once (stage
-③), and the coordinator fetches its assignments and rewards once.
+``mode="sequential"`` is the REFERENCE ORACLE: the same plan and feedback,
+but one padded training launch per cohort, a ``tensordot`` aggregation
+(outside any kernel, as in the JAX package) and an eager server-optimizer
+update of the cohort's slot.
 
-Not in this slice (they raise ``NotImplementedError``): the sequential
-oracle (``execution="sequential"``), round overlap, cohort sharding and
-the population store.
+ROUND PIPELINING (§⑤, ``FLConfig.round_overlap = 1``): a depth-2 software
+pipeline. Every round executes a plan computed before the previous round's
+feedback landed (one-round staleness). CUDA launches are asynchronous, so
+while the card executes round r the host retires round r-1's feedback and
+plans, packs and stages round r+1; stage-①/③ control math runs as numpy
+twins (``host_control``) because anything that waits on the card there
+would serialize the pipeline. Round r's sketches and losses come back by an
+asynchronous copy into pinned host buffers, read after its event (the one
+wait per round); round r+1's buffers go up by asynchronous copies from
+pinned memory. Partition events FLUSH the pipeline (drain the stale round
+synchronously, discard the staged plan). ``round_overlap = 0`` keeps the
+strict plan → execute → feedback order.
+
+Cohort sharding over several devices is a later slice (it raises
+``NotImplementedError``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.core.clustering import _cosine_np
 from repro_torch.core.cohort import distance_matrix
 from repro_torch.fl.algorithms import apply_stacked
 from repro_torch.fl.client import local_train
 from repro_torch.kernels import ops as kops
+from repro_torch.scale.store import ChunkedAffinityTable
 from repro_torch.utils.tree import tree_map
 
 LATER = "later port slice"
@@ -65,6 +80,15 @@ def bank_capacity(auxo) -> Tuple[int, int]:
     return 1 + k * n_partitions, 1 + (k - 1) * n_partitions
 
 
+def _set_rows(a: torch.Tensor, rows, v) -> torch.Tensor:
+    """A copy of ``a`` with ``a[rows] = v``. Bank updates outside the fused
+    step are out of place: a snapshot holding the old tensors (the serving
+    snapshot, a round in flight) stays as it was."""
+    out = a.clone()
+    out[rows] = v
+    return out
+
+
 # ---------------------------------------------------------------------------
 # CohortBank: every cohort's params/opt-state stacked on a leading slot axis
 # ---------------------------------------------------------------------------
@@ -73,7 +97,8 @@ class CohortBank:
 
     Leaves have shape (capacity, ...) on the engine's device; slot 0 is
     the root cohort "0". Partitions copy the parent slot into freshly
-    allocated child slots.
+    allocated child slots. Every update replaces the bank's tensors rather
+    than writing into them, so holding ``params`` is a snapshot.
     """
 
     def __init__(self, params, opt_state, capacity: int):
@@ -113,12 +138,8 @@ class CohortBank:
             idx.append(slot)
             self._next += 1
 
-        def copy(a):
-            a[idx] = a[ps].clone()  # in-place update of the bank tensor
-            return a
-
-        tree_map(copy, self.params)
-        tree_map(copy, self.opt_state)
+        self.params = tree_map(lambda a: _set_rows(a, idx, a[ps]), self.params)
+        self.opt_state = tree_map(lambda a: _set_rows(a, idx, a[ps]), self.opt_state)
         self.clock[idx] = self.clock[ps]
         self.rounds[idx] = self.rounds[ps]
         return idx
@@ -232,44 +253,111 @@ class MatchPlan:
     n_real: int  # real participant rows this round
 
 
-@dataclasses.dataclass
 class ExecResult:
-    """Stage-② output, copied to the host once: per-row sketches and losses."""
+    """Stage-② output: per-row sketches (B, d_sketch) and losses (B,) as
+    numpy arrays.
 
-    sketches: np.ndarray  # (B, d_sketch)
-    losses: np.ndarray  # (B,)
+    ``ExecResult.fetch(..., lazy=True)`` of CUDA tensors (the §⑤ overlap)
+    queues their copies to the host behind the round's step, into pinned
+    buffers, and records an event after them: the dispatch returns at once,
+    and the first read (stage ③, a round later) waits on the event. The
+    buffers hold stale bytes until the event has completed, so every read
+    goes through the properties.
+    """
+
+    def __init__(self, sketches: np.ndarray, losses: np.ndarray, ready=None):
+        self._sketches = sketches
+        self._losses = losses
+        self._ready = ready  # torch.cuda.Event recorded after the copies
+
+    @classmethod
+    def fetch(cls, sketches: torch.Tensor, losses: torch.Tensor, lazy: bool) -> "ExecResult":
+        if not (lazy and sketches.is_cuda):
+            return cls(sketches.cpu().numpy(), losses.cpu().numpy())
+        hs = torch.empty(sketches.shape, dtype=sketches.dtype, pin_memory=True)
+        hl = torch.empty(losses.shape, dtype=losses.dtype, pin_memory=True)
+        hs.copy_(sketches, non_blocking=True)
+        hl.copy_(losses, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return cls(hs.numpy(), hl.numpy(), ready)
+
+    def _wait(self):
+        if self._ready is not None:
+            self._ready.synchronize()
+            self._ready = None
+
+    @property
+    def sketches(self) -> np.ndarray:
+        self._wait()
+        return self._sketches
+
+    @property
+    def losses(self) -> np.ndarray:
+        self._wait()
+        return self._losses
 
 
 # ---------------------------------------------------------------------------
 # The pipeline
 # ---------------------------------------------------------------------------
 class RoundPipeline:
-    """Drives one synchronous global round on one device."""
+    """Drives one global round on one device.
+
+    mode="batched"    — one fused step for the execution stage and one
+                        batched pass for the feedback clustering,
+                        independent of the leaf-cohort count.
+    mode="sequential" — reference oracle: same plan, same feedback
+                        application, per-cohort training launches.
+    """
 
     def __init__(self, engine, mode: str = "batched"):
-        if mode != "batched":
-            raise NotImplementedError(f"execution={mode!r}: {LATER}")
+        if mode not in ("batched", "sequential"):
+            raise ValueError(f"execution={mode!r}: 'batched' or 'sequential'")
         fl, auxo = engine.fl, engine.auxo
-        if int(getattr(fl, "round_overlap", 0) or 0):
-            raise NotImplementedError(f"round_overlap: {LATER}")
         if int(fl.cohort_shards or 0) > 1:
             raise NotImplementedError(f"cohort_shards > 1: {LATER}")
+        # §⑤ round pipelining: 0 = synchronous, 1 = depth-2 overlap
+        self.overlap = int(fl.round_overlap)
+        if self.overlap not in (0, 1):
+            raise ValueError("only depth-2 overlap (round_overlap=1)")
+        if self.overlap and mode != "batched":
+            raise ValueError("round overlap requires the batched pipeline")
         self.eng = engine
         self.mode = mode
         capacity, self.max_leaves = bank_capacity(auxo)
         self.bank = CohortBank(
             engine._init_params, engine.server_opt.init(engine._init_params), capacity
         )
-        self.table = AffinityTable(engine.data.n_clients, self.bank.capacity)
-        # §⑧ serving snapshot: the newest bank state consistent with the
-        # host tables (a round boundary), republished after every round.
-        # Each round's step replaces the bank's tensors rather than
-        # updating them, so holding the reference is a snapshot.
-        self.serve_params = self.bank.params
+        # §⑥ population plane: with FLConfig.population_store the table is
+        # a view over the engine's chunked PopulationStore (same method API,
+        # same bit-level math, O(touched clients) memory)
+        if engine.store is not None:
+            self.table = ChunkedAffinityTable(engine.store)
+        else:
+            self.table = AffinityTable(engine.data.n_clients, self.bank.capacity)
         self._all_ids_cache: Optional[np.ndarray] = None
         # flat execution width: the full round budget, fixed for the run;
         # L·quota(L) ≤ max(int(P·oc), 2·L) for every leaf count L
         self.width = max(2, int(fl.participants_per_round * fl.overcommit), 2 * self.max_leaves)
+        self.exec_dispatches = 0  # training launches of stage ② (one per cohort in sequential)
+        # host control plane (§⑤): with the overlap on, stage-①/③ control
+        # math runs as numpy twins; overridable for the staleness oracle
+        self.host_control = bool(self.overlap)
+        if self.overlap:
+            engine.coordinator.use_host_states()
+        self._inflight: Optional[Tuple[MatchPlan, ExecResult]] = None  # dispatched, not retired
+        self._staged: Optional[Tuple[int, Any, Any]] = None  # (round, plan, packed)
+        # host copies (xs, ys) of the staged round's row buffers
+        self._staged_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self.flushes = 0  # partition-triggered pipeline flushes
+        # §⑧ serving snapshot: the newest bank state consistent with the
+        # host tables (a round boundary). Bank updates replace its tensors,
+        # so holding the reference is a snapshot. With the overlap on, the
+        # live bank is round r while the tables hold round r-1: run_round
+        # publishes the pre-dispatch bank then, the drained bank after a
+        # flush.
+        self.serve_params = self.bank.params
         # cumulative host wall-time per stage
         self.stage_seconds = {"plan": 0.0, "pack": 0.0, "dispatch": 0.0, "feedback": 0.0}
 
@@ -290,9 +378,18 @@ class RoundPipeline:
     def plan_round(self, r: int) -> Optional[MatchPlan]:
         eng, fl, auxo = self.eng, self.eng.fl, self.eng.auxo
         if fl.use_availability:
-            avail = np.asarray(eng.trace.available(r, eng.rng))
+            if getattr(eng.trace, "mode", "compat") == "chunked":
+                # §⑥ streaming availability: per-chunk Poisson counts +
+                # in-chunk id sampling, capped at a candidate pool around
+                # the round budget (the full active set is never built)
+                pool = max(4 * self.width, 2 * int(fl.participants_per_round))
+                avail, _n_avail = eng.trace.sample(r, pool, eng.rng)
+            else:
+                avail = np.asarray(eng.trace.available(r, eng.rng))
         else:
             avail = self._all_ids
+        if eng.store is not None and eng.store.n_departed:
+            avail = avail[eng.store.alive(avail)]  # churned-out clients skip rounds
         bl = eng.coordinator.blacklist
         if bl:
             avail = avail[~np.isin(avail, np.fromiter(bl, int, len(bl)))]
@@ -403,12 +500,17 @@ class RoundPipeline:
             if len(ident_leaves) >= 2:
                 idents = np.stack([eng.coordinator.identity[l] for l in ident_leaves]).astype(np.float32)
                 fps = eng.fingerprint[avail[to_root]]
-                # no power-of-two padding of the batch (the JAX package pads
-                # to avoid recompiles; the CUDA kernel takes any P as is)
-                sims = kops.cosine_similarity(
-                    torch.from_numpy(np.ascontiguousarray(fps)).to(eng.device),
-                    torch.from_numpy(idents).to(eng.device),
-                ).cpu().numpy()
+                if self.host_control:
+                    # §⑤: numpy twin — a kernel launch and its fetch here
+                    # would wait on the round in flight
+                    sims = _cosine_np(fps, idents)
+                else:
+                    # no power-of-two padding of the batch (the JAX package
+                    # pads to avoid recompiles; the CUDA kernel takes any P)
+                    sims = kops.cosine_similarity(
+                        torch.from_numpy(np.ascontiguousarray(fps)).to(eng.device),
+                        torch.from_numpy(idents).to(eng.device),
+                    ).cpu().numpy()
                 li = np.array([leaves.index(l) for l in ident_leaves])
                 want[to_root] = li[np.argmax(sims, axis=1)]
             else:
@@ -421,8 +523,41 @@ class RoundPipeline:
                     )
                     if leaf in leaves:
                         want[j] = leaves.index(leaf)
+        # §⑥/⑦ churn-aware matching (FLConfig.warm_rearrivals): a
+        # re-arrival's check-ins probe the root model and seed its affinity
+        # from the probe fingerprint's nearest-identity leaf instead of
+        # re-exploring cold. The marker is consumed on actual PARTICIPATION
+        # (stage-③ kept rows, see _consume_rearrivals), not here. The probe
+        # is a training launch whose result the host reads: under
+        # round_overlap=1 it waits on the round in flight (opt-in policy).
+        if (
+            eng.fl.warm_rearrivals
+            and eng.store is not None
+            and eng.global_mu_seen
+            and len(eng.coordinator.identity) >= 2
+        ):
+            warm = eng.store.gather("rearrived", avail)
+            if warm.any():
+                pf = eng._probe_fingerprints(avail[warm])
+                best, _m, il = eng.coordinator.match_many(pf)
+                # the one-line policy: check in at the nearest identity
+                want[warm] = np.array([leaves.index(l) for l in il])[best]
         claimed = known_any & (want == exploit)
         return want, claimed
+
+    def _consume_rearrivals(self, plan: MatchPlan):
+        """One-shot warm-rearrival markers clear when a re-arrival actually
+        LANDS a kept row (it now holds a real reward record): clearing at
+        match time would waste the seed on clients the quota skipped, or on
+        plans a partition flush later discards."""
+        store = self.eng.store
+        if not self.eng.fl.warm_rearrivals or store is None:
+            return
+        kept_ids = plan.client_rows[plan.kept]
+        if kept_ids.size:
+            warm = store.gather("rearrived", kept_ids)
+            if warm.any():
+                store.scatter("rearrived", kept_ids[warm], False)
 
     # ------------------------------------------------------------ stage ②
     def _exec_step(self, slot_rows, xs, ys, seed, sizes, kept, upd):
@@ -463,7 +598,10 @@ class RoundPipeline:
     def _pack_rows(self, plan: MatchPlan):
         """Host-side data plane: local batches for every row as ONE batched
         population draw in the canonical order (padding rows replicate the
-        first row's batch with weight 0), then one copy to the device."""
+        first row's batch with weight 0). Batched mode stages them on the
+        device (``_stage_buffers``); the sequential oracle keeps host
+        arrays plus per-row threefry keys drawn on the host, row i's key
+        ``split(key(key_seed), B)[i]``."""
         eng, fl = self.eng, self.eng.fl
         B, n = plan.slot_rows.shape[0], plan.n_real
         cids = plan.client_rows[:n]
@@ -478,8 +616,29 @@ class RoundPipeline:
         ys = np.empty((B,) + ys_r.shape[1:], ys_r.dtype)
         xs[:n], ys[:n] = xs_r, ys_r
         xs[n:], ys[n:] = xs_r[0], ys_r[0]
-        dev = eng.device
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        if self.mode != "batched":
+            return xs, ys, rnd.split(rnd.key(plan.key_seed), B)
+        if self.overlap:
+            # the last _pack_rows of a run_round is the staged next round
+            self._staged_host = (xs, ys)
+        return self._stage_buffers(plan, xs, ys)
+
+    def _stage_buffers(self, plan: MatchPlan, xs, ys) -> tuple:
+        """One round's row buffers on the device, execution-ready. Under the
+        overlap on the card each goes up from pinned memory by an
+        asynchronous copy, queued behind the round in flight, so the host
+        goes on; PyTorch's pinned-memory cache hands a staging buffer out
+        again only after the event of its copy has completed, so a buffer is
+        never rewritten under a pending copy."""
+        dev = self.eng.device
+        pinned = self.overlap and dev.type == "cuda"
+
+        def put(a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if pinned:
+                return t.pin_memory().to(dev, non_blocking=True)
+            return t.to(dev)
+
         return (
             put(plan.slot_rows.astype(np.int64)),
             put(xs),
@@ -491,16 +650,17 @@ class RoundPipeline:
         )
 
     def execute(self, plan: MatchPlan, packed=None) -> ExecResult:
-        """Stage ②: run the round's fused step on the device."""
+        """Stage ②: run the round's training on the device. Under the
+        overlap the returned ExecResult is read lazily (stage ③); ``packed``
+        lets the §⑤ scheduler pass buffers packed a round ahead."""
         eng, fl = self.eng, self.eng.fl
         if packed is None:
             packed = self._timed("pack", self._pack_rows, plan)
         t0 = time.perf_counter()
-        with torch.no_grad():
-            new_p, new_o, sketches, losses = self._exec_step(*packed)
-        self.bank.params = new_p
-        self.bank.opt_state = new_o
-        res = ExecResult(sketches.cpu().numpy(), losses.cpu().numpy())
+        if self.mode == "batched":
+            res = self._execute_batched(packed)
+        else:
+            res = self._execute_sequential(plan, *packed)
         self.stage_seconds["dispatch"] += time.perf_counter() - t0
         # simulated wall-clock + resource accounting
         for leaf in plan.active:
@@ -509,6 +669,57 @@ class RoundPipeline:
             self.bank.rounds[slot] += 1
         eng.resource_used += int(plan.real.sum()) * fl.local_steps * fl.batch_size
         return res
+
+    def _execute_batched(self, staged) -> ExecResult:
+        with torch.no_grad():
+            new_p, new_o, sketches, losses = self._exec_step(*staged)
+        self.exec_dispatches += 1
+        self.bank.params = new_p
+        self.bank.opt_state = new_o
+        return ExecResult.fetch(sketches, losses, lazy=bool(self.overlap))
+
+    def _execute_sequential(self, plan: MatchPlan, xs, ys, keys) -> ExecResult:
+        """Reference oracle: one padded training launch PER cohort, a
+        ``tensordot`` aggregation and an eager server-optimizer update
+        written into the cohort's slot."""
+        eng, fl = self.eng, self.eng.fl
+        dev = eng.device
+        B = plan.slot_rows.shape[0]
+        sketches = np.zeros((B, eng.auxo.d_sketch), np.float32)
+        losses = np.zeros((B,), np.float32)
+        quota = max(2, int(fl.participants_per_round * fl.overcommit / len(plan.leaves)))
+        for leaf in plan.active:
+            slot = self.bank.slot_of[leaf]
+            rows = np.nonzero(plan.real & (plan.slot_rows == slot))[0]
+            pad = np.concatenate([rows, np.repeat(rows[0], quota - rows.size)])
+            params = self.bank.params_of(leaf)
+            with torch.no_grad():
+                deltas, loss_c = eng._train_cohort(
+                    params,
+                    torch.from_numpy(xs[pad]).to(dev),
+                    torch.from_numpy(ys[pad]).to(dev),
+                    keys[torch.from_numpy(pad)].to(dev),
+                )
+            self.exec_dispatches += 1
+            loss_np = loss_c.cpu().numpy()
+            if fl.qfed_q > 0:
+                w = np.power(np.maximum(loss_np, 1e-6), fl.qfed_q)
+            else:
+                w = plan.sizes[pad].astype(np.float32)
+            w = w * np.concatenate([plan.kept[rows], np.zeros(quota - rows.size)]).astype(np.float32)
+            w = torch.as_tensor(w / max(w.sum(), 1e-9), dtype=torch.float32, device=dev)
+            agg = {k: torch.tensordot(w, d, dims=1) for k, d in deltas.items()}
+            new_p, new_o = eng.server_opt.apply(params, self.bank.opt_state_of(leaf), agg)
+            self.bank.params = tree_map(lambda a, v: _set_rows(a, slot, v), self.bank.params, new_p)
+            self.bank.opt_state = tree_map(
+                lambda a, v: _set_rows(a, slot, v), self.bank.opt_state, new_o
+            )
+            if eng.auxo.enabled:
+                with torch.no_grad():
+                    sk = eng.sketcher.batch(deltas).cpu().numpy()
+                sketches[rows] = sk[: rows.size]
+            losses[rows] = loss_np[: rows.size]
+        return ExecResult(sketches, losses)
 
     # ------------------------------------------------------------ stage ③
     def apply_feedback(self, plan: MatchPlan, res: ExecResult) -> bool:
@@ -527,6 +738,7 @@ class RoundPipeline:
         nact = len(plan.active)
         if nact == 0:
             return False
+        self._consume_rearrivals(plan)
         rows_by = [
             np.nonzero(plan.kept & (plan.slot_rows == self.bank.slot_of[leaf]))[0]
             for leaf in plan.active
@@ -567,14 +779,19 @@ class RoundPipeline:
             kept_ids_list.append(kept_ids)
             claimed_list.append(plan.claimed[rows])
 
+        if not self.host_control:  # the host control plane keeps numpy
+            fp_batch = torch.from_numpy(fp_batch).to(eng.device)
+            masks = torch.from_numpy(masks).to(eng.device)
         results = eng.coordinator.feedback_all(
             plan.active,
             [k.tolist() for k in kept_ids_list],
-            torch.from_numpy(fp_batch).to(eng.device),
-            torch.from_numpy(masks).to(eng.device),
+            fp_batch,
+            masks,
             plan.round_idx,
             fl.rounds,
             claimed_list,
+            batched=(self.mode == "batched"),
+            backend="host" if self.host_control else "device",
         )
 
         # dense-table reward application + ExploreReward propagation; `cur`
@@ -662,9 +879,77 @@ class RoundPipeline:
         cur[i: i + 1] = list(event.children)
 
     # ------------------------------------------------------------ driver
-    def run_round(self, r: int):
+    def _plan_and_pack(self, r: int) -> Tuple[int, Any, Any]:
         plan = self._timed("plan", self.plan_round, r)
         if plan is None:
-            return
-        self.apply_feedback(plan, self.execute(plan))
+            if self.overlap:
+                self._staged_host = None  # no buffers ride with an empty round
+            return (r, None, None)
+        packed = self._timed("pack", self._pack_rows, plan)
+        return (r, plan, packed)
+
+    def _retire(self) -> bool:
+        """Apply the in-flight round's feedback (True iff it partitioned)."""
+        if self._inflight is None:
+            return False
+        plan, res = self._inflight
+        self._inflight = None
+        return self.apply_feedback(plan, res)
+
+    def flush(self):
+        """Drain the pipeline: retire the in-flight round's feedback, so
+        host tables and fingerprints are consistent with the bank. A
+        partition during the drain discards the staged next-round plan (it
+        was computed against pre-partition tables); otherwise the staged
+        plan survives, its one-round staleness being the steady-state
+        semantics. No-op in synchronous mode and on an empty pipeline."""
+        if self._retire():
+            self._staged = None
+            self._staged_host = None
         self.serve_params = self.bank.params
+
+    def run_round(self, r: int):
+        if not self.overlap:
+            plan = self._timed("plan", self.plan_round, r)
+            if plan is None:
+                return
+            self.apply_feedback(plan, self.execute(plan))
+            self.serve_params = self.bank.params
+            return
+        # §⑤ depth-2 overlapped schedule. Host-visible order per call:
+        #   wait for round r-1's sketches/losses (its event: the ONLY wait
+        #     of stage ③ on the card; the card's queue is then empty)
+        #   → dispatch round r (plan/buffers staged by the previous call)
+        #   → apply round r-1's feedback        ┐ host-control numpy, all
+        #   → plan round r+1 (one-round-stale)  │ overlapped with the card
+        #   → pack + stage its buffers          ┘ executing round r
+        staged, self._staged = self._staged, None
+        prev, self._inflight = self._inflight, None
+        if prev is not None:
+            prev[1].sketches, prev[1].losses  # lazy fetch, before dispatch
+        if staged is not None and staged[0] == r:
+            _, plan, packed = staged
+        else:
+            _, plan, packed = self._plan_and_pack(r)
+        # serving snapshot candidate: the bank BEFORE round r's dispatch
+        # replaces it (round r-1's values, consistent with the tables once
+        # prev's feedback lands)
+        pre = self.bank.params
+        res = self.execute(plan, packed) if plan is not None else None
+        events = prev is not None and self.apply_feedback(*prev)
+        if plan is not None:
+            if events:
+                # pipeline FLUSH: the partition invalidated round r's stale
+                # plan (it trained the pre-partition leaf set one extra
+                # round): drain it synchronously, so the next plan sees
+                # fully reseeded tables
+                self.flushes += 1
+                self.apply_feedback(plan, res)
+            else:
+                self._inflight = (plan, res)
+        # publish the serving snapshot for the gap ahead: boundary r-1
+        # while round r stays in flight, boundary r if it was drained
+        self.serve_params = self.bank.params if self._inflight is None else pre
+        # stage round r+1 against the current tables: they miss only round
+        # r's feedback (in flight), stale by exactly one round
+        self._staged = self._plan_and_pack(r + 1)

@@ -61,10 +61,14 @@ def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def key(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.key(seed)``: a 32-bit seed pads with a zero high word."""
+    """``jax.random.key(seed)`` as the JAX package runs it (64-bit mode
+    off): the low 32 bits of the seed under a zero high word, for every
+    seed in the int64 range; a seed outside it raises ``OverflowError``."""
     seed = int(seed)
-    hi = 0 if -(2**31) <= seed < 2**31 else (seed >> 32) & _M
-    return torch.tensor([hi, seed & _M], dtype=torch.int64, device=device)
+    if not -(2**63) <= seed < 2**63:
+        raise OverflowError(f"seed {seed} is out of the int64 range")
+    # [0, seed] made on the device: a copy from the host would wait for it
+    return torch.arange(2, dtype=torch.int64, device=device) * (seed & _M)
 
 
 def _iota(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,9 +98,12 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: threefry of the key over the words (0, data)."""
-    d = torch.tensor(int(data) & _M, dtype=torch.int64, device=k.device)
-    b1, b2 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
+    """``jax.random.fold_in``: threefry of the key over the words (0, data).
+    ``data`` must fit a uint32, else ``OverflowError`` (as jax raises)."""
+    data = int(data)
+    if not 0 <= data <= _M:
+        raise OverflowError(f"fold_in data {data} is out of bounds for uint32")
+    b1, b2 = threefry2x32(k[..., 0], k[..., 1], 0, data)
     return torch.stack([b1, b2], dim=-1)
 
 

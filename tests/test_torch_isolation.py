@@ -23,6 +23,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.models, repro_torch.configs, repro_torch.serve\n"
         "import repro_torch.configs.granite_3_2b, repro_torch.configs.shapes\n"
         "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.checkpoint.npz\n"
+        "import repro_torch.scale, repro_torch.data.plane\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -83,10 +84,13 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.fl import AuxoConfig, AuxoEngine, FLConfig, MLPTask
 
     pop = make_population(n_clients=8, n_groups=2, test_per_group=8, seed=0)
-    for kw in (dict(round_overlap=1), dict(cohort_shards=2), dict(population_store=True),
-               dict(execution="sequential")):
+    for kw in (dict(cohort_shards=2), dict(cohort_shards=2, round_overlap=1)):
         with pytest.raises(NotImplementedError):
             AuxoEngine(MLPTask(), pop, FLConfig(rounds=1, **kw), AuxoConfig(), device="cpu")
+    # the engine's other single-device modes are ported
+    for kw in (dict(round_overlap=1), dict(population_store=True), dict(execution="sequential"),
+               dict(population_store=True, availability_mode="chunked", warm_rearrivals=True)):
+        AuxoEngine(MLPTask(), pop, FLConfig(rounds=1, **kw), AuxoConfig(), device="cpu")
 
 
 def test_later_model_families_and_sliding_window_decode_raise():

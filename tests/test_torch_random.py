@@ -15,7 +15,8 @@ import torch
 from repro_torch import random as trnd
 
 # fixed at import: parametrize ids must be the same in every xdist worker
-SEEDS = [0, 1, 42, 1234 * 7919, 2**31 - 1, 5287]
+# seeds past 32 bits: jax (64-bit mode off) keeps the low 32 bits
+SEEDS = [0, 1, 42, 1234 * 7919, 2**31 - 1, 5287, 2**32, 2**40 + 5, -(2**31) - 1, 2**63 - 1]
 SHAPES = [(1,), (7,), (3, 5), (128, 16), (2, 3, 4)]
 
 
@@ -37,6 +38,17 @@ def test_key_split_fold_in_bit_equal(seed):
             trnd.fold_in(tk, data).numpy(),
             _jkey_words(jax.random.fold_in(jk, data)),
         )
+    # fold_in takes uint32 data only; jax raises outside it, and so does the port
+    for data in (2**32 - 1, 2**31):
+        np.testing.assert_array_equal(
+            trnd.fold_in(tk, data).numpy(),
+            _jkey_words(jax.random.fold_in(jk, data)),
+        )
+    for data in (2**32, -1, -(2**31), 2**63):
+        with pytest.raises(OverflowError):
+            jax.random.fold_in(jk, data)
+        with pytest.raises(OverflowError):
+            trnd.fold_in(tk, data)
     # chained derivations stay equal
     a, b = jax.random.split(jax.random.fold_in(jk, 5))
     ta, tb = trnd.split(trnd.fold_in(tk, 5))
@@ -87,6 +99,28 @@ def test_categorical_same_indices(seed):
         assert got == want
     g = np.asarray(jax.random.gumbel(jk, (50,)))
     np.testing.assert_allclose(trnd.gumbel(tk, (50,)).numpy(), g, rtol=4e-6, atol=4e-6)
+
+
+def test_seed_outside_int64_raises_like_jax():
+    for seed in (2**63, 2**64, -(2**63) - 1):
+        with pytest.raises(OverflowError):
+            jax.random.key(seed)
+        with pytest.raises(OverflowError):
+            trnd.key(seed)
+    np.testing.assert_array_equal(trnd.key(-(2**63)).numpy(), _jkey_words(jax.random.key(-(2**63))))
+
+
+def test_engine_seed_past_32_bits_inits_like_jax():
+    """FLConfig(seed=2**32 + 7): both engines init from key(fl.seed)."""
+    from repro.fl.task import MLPTask as JTask
+    from repro_torch.fl.task import MLPTask
+
+    seed = 2**32 + 7
+    jp = JTask(dim=32, n_classes=10).init(jax.random.key(seed))
+    tp = MLPTask(dim=32, n_classes=10).init(trnd.key(seed))
+    assert sorted(jp) == sorted(tp)
+    for k in jp:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=4e-6, atol=4e-6)
 
 
 def test_child_clusterer_keys_from_hash_seeds():
