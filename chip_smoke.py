@@ -9,6 +9,7 @@
         # rows of the segment and cosine kernels alone, likewise
     python3 chip_smoke.py --lm-train      # build + phase 10 alone
     python3 chip_smoke.py --engine-modes  # build + phase 4's run + phase 11 alone
+    python3 chip_smoke.py --eval-baselines  # build + phase 4a and 4's runs + phase 12 alone
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -62,6 +63,20 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      store, chunked availability, churn), synchronous and overlapped,
      6 rounds each, and the store-versus-dense scenario bit-equal; then
      every call shape of the phase held against the plain version.
+ 12. evaluation and baselines (plain versions raise on CUDA tensors, every
+     path's launches counted from 0; FTFA and the four baselines launch
+     none): (a) ``ftfa_eval(steps=5)`` on
+     phase 4's engine (1000 clients -> 100 rows), then on phase 4a's
+     120-client engines, card against CPU at the round tolerance; (b)
+     ``examples/robust_fl.py``'s failover on phase 4's engine: checkpoint ->
+     recover, ``rebuild_from_requests`` from 200 clients' requests, and
+     ``feedback`` on the card and on the CPU from the same checkpoint
+     (equal assignments, rewards within 1e-5 relative); (c) Table 5 (``benchmarks/table5_clustered_fl.py``
+     on femnist-like: 800 clients, 80 rounds, k 4): ``run_fl``, ``run_auxo``,
+     the paper-faithful Auxo, IFCA, FL+HC, FlexCFL, and CFL on its
+     100-client scenario, all finite with their cost invariants, wall
+     seconds and ``_agglomerative``'s host seconds apart; (d) every call
+     shape of the phase held against the plain version.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -74,6 +89,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -335,7 +351,7 @@ def small_reference(torch):
     for k in fg:
         if not torch.allclose(fg[k].cpu(), fc[k], rtol=1e-4, atol=1e-5):
             raise AssertionError(f"small run: {k} differs card vs CPU (max {err})")
-    return pg, err
+    return pg, err, engs
 
 
 # ------------------------------------------------------------------ timing
@@ -1569,6 +1585,246 @@ def engine_modes_only(torch) -> int:
     print(smi())
     return 0
 
+# ------------------------------------------- phase 12: evaluation and baselines
+# benchmarks/table5_clustered_fl.py at its own settings: the femnist-like
+# population of benchmarks/common.py (800 clients, 2 groups), 80 rounds of
+# 100 participants without availability traces, k 4, FL+HC warm-up
+# max(4, 80 // 8); CFL on its 100-client, 20-round scenario (60
+# participants a round asked for, all 100 train: full participation)
+T5_POP = dict(seed=1, n_clients=800, n_groups=2, group_sep=0.0, dirichlet=2.0, label_conflict=0.5)
+T5_ROUNDS = 80
+T5_K = 4
+CFL_POP = dict(n_clients=100, n_groups=2, group_sep=0.0, label_conflict=0.5, seed=2)
+CFL_FL = dict(rounds=20, participants_per_round=60, eval_every=2, use_availability=False, seed=1)
+FTFA_STEPS = 5
+FEEDBACK_ROWS = 100  # 12b's feedback call: the first fingerprinted clients
+
+
+def ftfa_captured(torch, eng):
+    """``eng.ftfa_eval(FTFA_STEPS)`` with the personalised params (rows plus
+    their fine-tuning deltas, on the host) captured: (value, params, s)."""
+    from repro_torch.fl import engine as fe
+    from repro_torch.utils.tree import tree_map
+
+    seen = {}
+    orig = fe.local_train
+
+    def rec(loss, p, *a, **k):
+        out = orig(loss, p, *a, **k)
+        seen["params"] = tree_map(lambda u, v: (u + v).cpu(), p, out[0])
+        return out
+
+    fe.local_train = rec
+    try:
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = eng.ftfa_eval(steps=FTFA_STEPS)
+        secs = time.perf_counter() - t0
+    finally:
+        fe.local_train = orig
+    return value, seen["params"], secs
+
+
+def baseline_row(name, hist, wall, agglo=None):
+    last = hist[-1]
+    vals = [last["acc_mean"], last["resource"], last["time"]]
+    if not all(math.isfinite(float(v)) for h in hist for v in (h["acc_mean"], h["resource"], h["time"])):
+        raise AssertionError(f"12c {name}: a non-finite history value")
+    if not 0.0 <= last["acc_mean"] <= 1.0:
+        raise AssertionError(f"12c {name}: acc_mean {last['acc_mean']}")
+    return dict(algo=name, acc_mean=vals[0], resource=vals[1], time=vals[2],
+                comm=last.get("comm", "-"), wall_s=wall, agglomerative_host_s=agglo)
+
+
+def eval_baselines_phase(torch, np, ops, ref, cs, sa, eng, small) -> dict:
+    """Phase 12 on phase 4's engine ``eng`` and phase 4a's engines
+    ``small`` (card and CPU): FTFA (12a), coordinator failover (12b), Table
+    5 (12c), then every kernel call shape of the phase held against the
+    plain version (12d). Plain versions raise on CUDA tensors throughout;
+    each path's launches are counted from 0."""
+    from repro_torch.core.coordinator import CohortCoordinator
+    from repro_torch.data import make_population
+    from repro_torch.fl import AuxoConfig, FLConfig, MLPTask, run_auxo, run_fl
+    from repro_torch.fl.baselines import CFL, FLHC, IFCA, FlexCFL
+
+    counts = Launches(cs, sa)
+    shapes = {"cosine_similarity": {}, "segment_aggregate": {}}
+    undo = [
+        record(cs, "cosine_similarity",
+               lambda x, c, eps=1e-8: (tuple(x.shape), tuple(c.shape), x.dtype),
+               shapes["cosine_similarity"]),
+        record(sa, "segment_aggregate",
+               lambda d, i, k, w=None: (tuple(d.shape), int(k), d.dtype, w is not None),
+               shapes["segment_aggregate"]),
+        forbid_cuda_in_plain(torch, ref),
+    ]
+    out = {}
+    try:
+        # ------------------------------------------------------- 12a: FTFA
+        n_rows = len(range(0, eng.data.n_clients, max(1, eng.data.n_clients // 100)))
+        with counts("12a ftfa"):
+            value, pf, secs = ftfa_captured(torch, eng)
+        if not (0.0 <= value <= 1.0) or any(v.shape[0] != n_rows for v in pf.values()):
+            raise AssertionError(f"12a: ftfa value {value}, rows {[v.shape for v in pf.values()]}")
+        if not all(bool(torch.isfinite(v).all()) for v in pf.values()):
+            raise AssertionError("12a: non-finite personalised params")
+        vals = {dev: ftfa_captured(torch, small[dev]) for dev in ("cuda", "cpu")}
+        (vg, pg, sg), (vc, pc, sc) = vals["cuda"], vals["cpu"]
+        gap = max((pg[k] - pc[k]).abs().max().item() for k in pg)
+        if not all(torch.allclose(pg[k], pc[k], rtol=1e-4, atol=1e-5) for k in pg):
+            raise AssertionError(f"12a: personalised params differ card vs CPU (max {gap})")
+        if not math.isclose(vg, vc, rel_tol=1e-4, abs_tol=1e-5):
+            raise AssertionError(f"12a: ftfa value card {vg} vs CPU {vc}")
+        if small["cuda"].rng.bit_generator.state != small["cpu"].rng.bit_generator.state:
+            raise AssertionError("12a: the training rng advanced differently on the card")
+        print(f"[eval] 12a ftfa_eval(steps={FTFA_STEPS}) on phase 4's engine (openimage-like, "
+              f"{eng.data.n_clients} clients -> {n_rows} rows, one row-stacked local_train): "
+              f"{value:.6f} in {secs:.4f} s; the 120-client run: card {vg:.6f} ({sg:.4f} s), CPU "
+              f"{vc:.6f} ({sc:.4f} s), personalised params max |card - CPU| {gap:.3e} (rtol 1e-4, "
+              f"atol 1e-5), training rng states equal", flush=True)
+        out["ftfa"] = dict(value=value, s=secs, rows=n_rows, small=(vg, vc), gap=gap)
+
+        # --------------------------------------------------- 12b: failover
+        co = eng.coordinator
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        path = os.path.join(ROOT, "build", "coordinator.ckpt")
+        co.checkpoint(path)
+        co2 = CohortCoordinator.recover(path, device="cuda")
+        if set(co2.tree.leaves()) != set(co.tree.leaves()) or co2.blacklist != co.blacklist:
+            raise AssertionError(f"12b: recovered leaves {co2.tree.leaves()} vs {co.tree.leaves()}")
+        reqs = []
+        for c in range(200):
+            pref = eng.preferred_cohort(c)
+            if pref:
+                reqs.append((c, pref, max(0, eng.client_cluster_index(c, pref))))
+        co3 = CohortCoordinator(d_sketch=AUXO["d_sketch"], device="cuda")
+        co3.rebuild_from_requests(reqs)
+        if not reqs or not {r[1] for r in reqs} <= set(co3.tree.nodes):
+            raise AssertionError(f"12b: rebuild from {len(reqs)} requests gave {co3.tree.leaves()}")
+        # one cohort's feedback on the card and on the CPU, from the same
+        # checkpoint: the k-means bootstrap, then a steady-state step
+        leaf = co.tree.leaves()[0]
+        ids = np.flatnonzero(eng.fp_seen)[:FEEDBACK_ROWS]
+        sk = np.ascontiguousarray(eng.fingerprint[ids], np.float32)
+        cos = {dev: CohortCoordinator.recover(path, device=dev) for dev in ("cuda", "cpu")}
+        fb_gap = 0.0
+        for step, r in enumerate((ROUNDS // 2, ROUNDS // 2 + 1)):
+            msgs = {}
+            for dev, c in cos.items():
+                with counts(f"12b feedback {dev}") if dev == "cuda" else contextlib.nullcontext():
+                    msgs[dev], _ = c.feedback(leaf, ids.tolist(), torch.from_numpy(sk).to(dev), r, ROUNDS)
+            ag = [m.cluster_index for m in msgs["cuda"].values()]
+            ac = [m.cluster_index for m in msgs["cpu"].values()]
+            if ag != ac or min(ag) < 0:
+                raise AssertionError(f"12b feedback {step}: assignments differ card vs CPU")
+            for i, m in msgs["cpu"].items():
+                d = abs(msgs["cuda"][i].reward - m.reward)
+                if d > 1e-5 * max(1.0, abs(m.reward)):
+                    raise AssertionError(f"12b feedback {step}: client {i}'s reward card vs CPU differs by {d}")
+                fb_gap = max(fb_gap, d)
+        print(f"[eval] 12b failover on phase 4's engine: checkpoint -> recover on the card restored "
+              f"the leaves {co2.tree.leaves()} and blacklist ({len(co2.blacklist)}); "
+              f"rebuild_from_requests from {len(reqs)} of 200 clients' requests -> "
+              f"{co3.tree.leaves()}; feedback({leaf!r}, {ids.size} fingerprints) twice on recovered "
+              f"coordinators, card == CPU assignments, rewards max |diff| {fb_gap:.3e}", flush=True)
+        out["failover"] = dict(leaves=co2.tree.leaves(), requests=len(reqs), rebuilt=co3.tree.leaves(),
+                               reward_gap=fb_gap)
+
+        # -------------------------------------------------- 12c: Table 5
+        pop = make_population(**T5_POP)
+        task = MLPTask(dim=pop.dim, n_classes=pop.n_classes)
+        fl = FLConfig(rounds=T5_ROUNDS, participants_per_round=100, eval_every=max(2, T5_ROUNDS // 20),
+                      use_availability=False, seed=1)
+        rows = []
+
+        def timed(fn, path=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counts(path) if path else contextlib.nullcontext():
+                res = fn()
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+        hist, wall = timed(lambda: run_fl(task, pop, fl, device="cuda"), "12c fl")
+        rows.append(baseline_row("fl", hist, wall))
+        for name, kw in (("auxo", {}), ("auxo-paper-faithful", dict(assisted_matching=False))):
+            (_, hist), wall = timed(lambda: run_auxo(task, pop, fl, AuxoConfig(**AUXO, **kw), device="cuda"),
+                                    f"12c {name}")
+            rows.append(baseline_row(name, hist, wall))
+        algos = (("ifca", IFCA(task, pop, fl, T5_K, device="cuda")),
+                 ("fl+hc", FLHC(task, pop, fl, T5_K, warmup_rounds=max(4, T5_ROUNDS // 8), device="cuda")),
+                 ("flexcfl", FlexCFL(task, pop, fl, T5_K, device="cuda")))
+        per_round = fl.participants_per_round * fl.local_steps * fl.batch_size
+        full_pass = pop.n_clients * fl.local_steps * fl.batch_size
+        for name, algo in algos:
+            hist, wall = timed(algo.run, f"12c {name}")
+            rows.append(baseline_row(name, hist, wall, None if name == "ifca" else algo.agglomerative_s))
+            if name == "ifca" and hist[-1]["comm"] != T5_K * fl.participants_per_round * T5_ROUNDS:
+                raise AssertionError(f"12c ifca: comm {hist[-1]['comm']}")
+            if name != "ifca" and hist[-1]["resource"] != T5_ROUNDS * per_round + full_pass:
+                raise AssertionError(f"12c {name}: resource {hist[-1]['resource']} lacks the full pass")
+        spop = make_population(**CFL_POP)
+        cfl = CFL(MLPTask(dim=spop.dim, n_classes=spop.n_classes), spop, FLConfig(**CFL_FL), 2,
+                  device="cuda")
+        hist, wall = timed(cfl.run, "12c cfl")
+        rows.append(baseline_row("cfl (100 clients, 20 rounds)", hist, wall, cfl.agglomerative_s))
+        if hist[-1]["resource"] != spop.n_clients * cfl.fl.local_steps * cfl.fl.batch_size * CFL_FL["rounds"]:
+            raise AssertionError(f"12c cfl: resource {hist[-1]['resource']} is not full participation")
+        for row in rows:
+            agglo = row["agglomerative_host_s"]
+            print(f"[eval] 12c {row['algo']}: acc_mean {row['acc_mean']:.4f}, resource "
+                  f"{row['resource']:.0f}, comm {row['comm']}, simulated time {row['time']:.1f} s, "
+                  f"wall {row['wall_s']:.3f} s"
+                  + ("" if agglo is None else f" (of it _agglomerative {agglo:.3f} s of host time)"),
+                  flush=True)
+        out["table5"] = rows
+    finally:
+        for u in undo:
+            u()
+    for path in ("12b feedback cuda", "12c auxo", "12c auxo-paper-faithful"):
+        if min(counts.by_path[path].values()) <= 0:
+            raise AssertionError(f"12: a round kernel never launched on {path}: {counts.by_path[path]}")
+    # FedAvg's round aggregates on the segment kernel and clusters nothing;
+    # FTFA's routing is numpy and the baselines aggregate with a plain mean
+    if counts.by_path["12c fl"]["segment_aggregate"] <= 0:
+        raise AssertionError(f"12c fl: the segment kernel never launched: {counts.by_path['12c fl']}")
+    for path in ("12a ftfa", "12c ifca", "12c fl+hc", "12c flexcfl", "12c cfl"):
+        if max(counts.by_path[path].values()) != 0:
+            raise AssertionError(f"12: {path} launched a round kernel: {counts.by_path[path]}")
+    # ------------------------------------------------ 12d: call shapes
+    worst = check_rows(torch, ops, ref, list(shapes["cosine_similarity"]), list(shapes["segment_aggregate"]))
+    print(f"[eval] launches by path {counts.by_path}", flush=True)
+    print(f"[eval] {len(shapes['cosine_similarity'])} cosine and {len(shapes['segment_aggregate'])} "
+          f"segment call shapes of phase 12 held against the plain version: max |err| {worst}",
+          flush=True)
+    out["launches"] = {k: sum(n[k] for n in counts.by_path.values()) for k in ROUND_KERNELS}
+    out["by_path"] = counts.by_path
+    out["worst"] = worst
+    return out
+
+
+def eval_baselines_only(torch) -> int:
+    """``--eval-baselines``: build, phase 4a's small run (card and CPU),
+    phase 4's main run, then phase 12 alone."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import segment_aggregate as sa
+
+    print(smi())
+    so = build.build()
+    print(f"[build] {so}")
+    _, _, small = small_reference(torch)
+    eng, _, secs = run_main(torch, ROUNDS)
+    print(f"[main] run_auxo openimage-like, {ROUNDS} rounds: {secs / ROUNDS:.4f} s/round")
+    out = eval_baselines_phase(torch, np, ops, ref, cs, sa, eng, small)
+    print(json.dumps({"eval_baselines_launches": out["by_path"], "max_abs_err": out["worst"],
+                      "table5": out["table5"], "ftfa": out["ftfa"]}))
+    print(smi())
+    return 0
+
 
 def row_json(sig, t):
     return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
@@ -1634,6 +1890,8 @@ def main(argv) -> int:
         return lm_only(torch)
     if "--engine-modes" in argv:
         return engine_modes_only(torch)
+    if "--eval-baselines" in argv:
+        return eval_baselines_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -1668,7 +1926,7 @@ def main(argv) -> int:
         return 0
 
     # ------------------------------------ phase 4a: small run, card vs CPU
-    parts, err = small_reference(torch)
+    parts, err, small = small_reference(torch)
     print(f"[reference] 120-client run: card == CPU partitions {parts}, "
           f"bank max |diff| {err:.3e} (rtol 1e-4, atol 1e-5)")
 
@@ -1825,6 +2083,15 @@ def main(argv) -> int:
         if r["name"] in ROUND_KERNELS:
             r["engine_modes_launches"] = modes["launches"][r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], modes["worst"][r["name"]])
+
+    # ------------------------------------------ phase 12: evaluation, baselines
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev = eval_baselines_phase(torch, np, ops, ref, cs, sa, eng, small)
+    for r in report:
+        if r["name"] in ROUND_KERNELS:
+            r["eval_baselines_launches"] = ev["launches"][r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], ev["worst"][r["name"]])
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

@@ -13,7 +13,12 @@ from repro_torch.core.clustering import (
 from repro_torch.core.cohort import CohortTree, distance_matrix, tree_distance
 from repro_torch.core.coordinator import CohortCoordinator, PartitionEvent
 from repro_torch.core.criteria import PartitionCriteria
-from repro_torch.core.selection import CohortSelector, instant_reward, instant_reward_batched
+from repro_torch.core.selection import (
+    CohortSelector,
+    instant_reward,
+    instant_reward_batched,
+    update_rewards,
+)
 from repro_torch.core.sketch import GradientSketcher
 
 __all__ = [
@@ -34,4 +39,5 @@ __all__ = [
     "kmeans_cosine",
     "population_heterogeneity",
     "tree_distance",
+    "update_rewards",
 ]

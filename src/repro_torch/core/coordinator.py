@@ -4,14 +4,18 @@ Port of ``repro.core.coordinator``: per round it matches client affinity
 requests to leaf cohorts, runs the clustering feedback of every leaf
 cohort (``feedback_all``: one batched pass on the device, per-cohort calls
 for the sequential oracle, or numpy twins on the host for the overlapped
-round), evaluates the Lemma-4.1 partition criteria, spawns child cohorts
-and blacklists repeat affinity-claim offenders. Checkpoint and soft-state
-recovery come with the checkpoint slice.
+round; ``feedback``: one cohort), evaluates the Lemma-4.1 partition
+criteria, spawns child cohorts and blacklists repeat affinity-claim
+offenders. Its soft state checkpoints to a pickle of Python and numpy
+objects only (``checkpoint``/``recover``), which either package reads, and
+can be rebuilt from the requests clients submit (``rebuild_from_requests``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import pickle
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +33,7 @@ from repro_torch.core.clustering import (
     stack_states,
     unstack_states,
 )
-from repro_torch.core.cohort import CohortTree
+from repro_torch.core.cohort import AffinityMessage, CohortNode, CohortTree
 from repro_torch.core.criteria import PartitionCriteria
 from repro_torch.core.selection import instant_reward, instant_reward_batched, instant_reward_np
 
@@ -189,6 +193,59 @@ class CohortCoordinator:
         return best.astype(np.int64), margin, leaves
 
     # ------------------------------------------------------------- feedback
+    def feedback(
+        self,
+        cohort_id: str,
+        client_ids: Sequence[int],
+        sketches,
+        round_idx: int,
+        total_rounds: int,
+        claimed_preferred: Optional[Sequence[bool]] = None,
+        mask=None,
+    ) -> Tuple[Dict[int, AffinityMessage], Optional[PartitionEvent]]:
+        """One cohort's post-round clustering + reward feedback (§3.2 stage 4).
+
+        sketches: (P, d), a tensor or a numpy array, may be padded to a fixed
+        batch size; the first len(client_ids) rows are the valid
+        participants and ``mask`` (P,) their validity weights.
+        claimed_preferred[i]: client i requested this cohort as its best fit
+        (the §5.2 fake-affinity anomaly check). This is ``feedback_all`` on a
+        one-cohort stack: the device backend (the cosine and segment kernels
+        on the card) with device states, the host backend under
+        ``use_host_states()``.
+        """
+        n = len(client_ids)
+        if n == 0:
+            return {}, None
+        if self.host_states:
+            sk = (
+                sketches.float().cpu().numpy() if isinstance(sketches, torch.Tensor)
+                else np.asarray(sketches, np.float32)
+            )
+            m = np.ones(sk.shape[0], np.float32) if mask is None else np.asarray(
+                mask.cpu() if isinstance(mask, torch.Tensor) else mask, np.float32
+            )
+            backend = "host"
+        else:
+            sk = torch.as_tensor(sketches).to(self.device)
+            m = (
+                torch.ones(sk.shape[0], device=self.device) if mask is None
+                else torch.as_tensor(mask).to(self.device).float()
+            )
+            backend = "device"
+        claimed = None if claimed_preferred is None else [list(claimed_preferred)]
+        fb = self.feedback_all(
+            [cohort_id], [list(client_ids)], sk[None], m[None], round_idx, total_rounds,
+            claimed, batched=False, backend=backend,
+        )[0]
+        messages = {
+            cid: AffinityMessage(
+                cohort_id=cohort_id, reward=float(fb.delta[i]), cluster_index=int(fb.assign[i])
+            )
+            for i, cid in enumerate(fb.client_ids)
+        }
+        return messages, fb.event
+
     def feedback_all(
         self,
         cohort_ids: Sequence[str],
@@ -384,14 +441,7 @@ class CohortCoordinator:
         for i, ch in enumerate(children):
             # hash() of a str is randomized per process: comparisons with
             # the JAX package run in one process
-            self.clusterers[ch] = OnlineClustering(
-                self.cluster_k, self.d_sketch, seed=self.seed + hash(ch) % 10_000,
-                device=self.device,
-            )
-            if self.host_states:
-                self.clusterers[ch].state = host_state(
-                    ClusterState.create(self.cluster_k, self.d_sketch, "cpu")
-                )
+            self._new_clusterer(ch, seed=self.seed + hash(ch) % 10_000)
             # child identity starts as the parent's cluster prototype
             self.identity[ch] = parent_cents[i].copy()
             self.stats[ch] = CohortStats(
@@ -406,3 +456,82 @@ class CohortCoordinator:
         )
         self.partitions.append(event)
         return event
+
+    def _new_clusterer(self, cohort_id: str, seed: int = 0):
+        """A fresh clusterer for ``cohort_id`` on the coordinator's device
+        (numpy leaves under ``use_host_states``)."""
+        self.clusterers[cohort_id] = OnlineClustering(
+            self.cluster_k, self.d_sketch, seed=seed, device=self.device
+        )
+        if self.host_states:
+            self.clusterers[cohort_id].state = host_state(
+                ClusterState.create(self.cluster_k, self.d_sketch, "cpu")
+            )
+
+    # ------------------------------------------------------------ tolerance
+    def checkpoint(self, path: str | Path):
+        """Pickle the soft state as Python and numpy objects only: the tree,
+        every clusterer state flattened in ClusterState's field order (the
+        JAX package's order, the same 8 fields), the blacklist and the
+        partition history. Either package's ``recover`` reads it."""
+        state = {
+            "tree_nodes": {
+                cid: (n.parent, list(n.children)) for cid, n in self.tree.nodes.items()
+            },
+            "clusterer_states": {
+                cid: np.asarray(
+                    np.concatenate(
+                        [np.ravel(host_array(getattr(c.state, f.name)))
+                         for f in dataclasses.fields(c.state)]
+                    )
+                )
+                for cid, c in self.clusterers.items()
+            },
+            "cluster_k": self.cluster_k,
+            "d_sketch": self.d_sketch,
+            "blacklist": sorted(self.blacklist),
+            "partitions": [dataclasses.asdict(p) for p in self.partitions],
+        }
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
+
+    @staticmethod
+    def recover(path: str | Path, device=None, **kwargs) -> "CohortCoordinator":
+        """Cohort-coordinator failover (§5.2): rebuild from checkpoint on
+        ``device``.
+
+        Clusterer EMA states restart fresh (seed 0, as the JAX package's
+        default; they re-anchor within a few rounds); the tree and the
+        blacklist are restored — the information clients cannot replay.
+        """
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        co = CohortCoordinator(
+            state["d_sketch"], cluster_k=state["cluster_k"], device=device, **kwargs
+        )
+        for cid, (parent, children) in sorted(state["tree_nodes"].items(), key=lambda kv: len(kv[0])):
+            if cid == "0":
+                continue
+            if cid not in co.tree.nodes:
+                co.tree.nodes[cid] = CohortNode(cid, parent)
+                co._new_clusterer(cid)
+                co.stats[cid] = CohortStats()
+        for cid, (parent, children) in state["tree_nodes"].items():
+            co.tree.nodes[cid].children = list(children)
+        co.blacklist = set(state["blacklist"])
+        return co
+
+    def rebuild_from_requests(self, requests: Sequence[Tuple[int, str, int]]):
+        """§5.1 soft-state recovery: reconstruct leaf set from the affinity
+        requests clients submit (client_id, cohort_id, cluster_index)."""
+        for _cid, cohort_id, _L in requests:
+            parts = cohort_id.split(".")
+            for depth in range(1, len(parts) + 1):
+                node_id = ".".join(parts[:depth])
+                if node_id not in self.tree.nodes:
+                    parent = ".".join(parts[: depth - 1]) or None
+                    self.tree.nodes[node_id] = CohortNode(node_id, parent)
+                    if parent and node_id not in self.tree.nodes[parent].children:
+                        self.tree.nodes[parent].children.append(node_id)
+                    self._new_clusterer(node_id)
+                    self.stats[node_id] = CohortStats()

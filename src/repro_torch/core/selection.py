@@ -8,7 +8,7 @@ Reward record update (EMA, γ = 0.2): R ← γ·ΔR + (1−γ)·R.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +61,10 @@ def instant_reward(sketches: torch.Tensor, mask=None) -> Tuple[torch.Tensor, tor
     return delta[0], d[0]
 
 
+def update_rewards(prev: float, delta: float, gamma: float = 0.2) -> float:
+    return gamma * delta + (1.0 - gamma) * prev
+
+
 @dataclasses.dataclass
 class CohortSelector:
     """Decaying ε-greedy over the client's affinity records."""
@@ -73,3 +77,27 @@ class CohortSelector:
         """Exploration probability of round ``round_idx`` (matching draws
         the explore/exploit coin per client in fl/pipeline.py)."""
         return max(self.min_epsilon, self.epsilon0 * (self.decay**round_idx))
+
+    def select(
+        self,
+        rng: np.random.Generator,
+        rewards: Dict[str, float],
+        leaves: List[str],
+        round_idx: int,
+    ) -> str:
+        """Pick a cohort *request* for one client (verbatim copy of the JAX
+        package's host code: one ``rng.random()``, then ``rng.integers`` on
+        exploration).
+
+        The request may name a stale (non-leaf) cohort — e.g. the parent a
+        client trained with before a partition it hasn't heard about. The
+        coordinator resolves such requests to a leaf using the client's
+        cluster index (§5.1 Request Match), so exploitation runs over
+        everything the client knows.
+        """
+        if not leaves:
+            raise ValueError("no leaf cohorts")
+        eps = self.epsilon(round_idx)
+        if not rewards or rng.random() < eps:
+            return leaves[rng.integers(len(leaves))]
+        return max(rewards.items(), key=lambda kv: kv[1])[0]

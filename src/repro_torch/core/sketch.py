@@ -13,6 +13,8 @@ Strategies:
                       one of ``path_filter``, and the ``[last_block_index]``
                       slice of every stacked ``backbone`` leaf (the last
                       transformer block, its norm scales included)
+- ``tensor_norms``    the float32 L2 norm of every leaf, in leaf order, in
+                      the first slots of the sketch (no projection)
 
 Leaves follow JAX's flattening order (sorted keys at every level), and
 leaf i of the selection uses seed ``seed * 7919 + i``. Each matrix is drawn
@@ -30,7 +32,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import torch
 
 from repro_torch import random as rnd
-from repro_torch.utils.tree import leaves_with_path
+from repro_torch.utils.tree import leaves_with_path, tree_map
 
 CACHE_FLOATS = 1 << 24  # a leaf's matrices are cached up to this many floats (64 MB)
 
@@ -75,7 +77,7 @@ def leaf_projection(flat: torch.Tensor, blocks: Iterable[torch.Tensor]) -> torch
 @dataclasses.dataclass(frozen=True)
 class GradientSketcher:
     d_sketch: int = 256
-    strategy: str = "full_proj"  # full_proj | last_block_proj
+    strategy: str = "full_proj"  # full_proj | last_block_proj | tensor_norms
     path_filter: Sequence[str] = ("final_norm", "head")
     last_block_index: int = -1
     seed: int = 1234
@@ -87,7 +89,7 @@ class GradientSketcher:
     def _selected(self, updates) -> List[Tuple[str, torch.Tensor]]:
         """(key path, (R, ...) rows) of the projected leaves, in order."""
         flat = leaves_with_path(updates)
-        if self.strategy == "full_proj":
+        if self.strategy in ("full_proj", "tensor_norms"):
             return flat
         if self.strategy == "last_block_proj":
             picked = []
@@ -98,7 +100,7 @@ class GradientSketcher:
                     # stacked layers (after the row axis): the last block's slice
                     picked.append((ks, leaf[:, self.last_block_index]))
             return picked
-        raise NotImplementedError(f"sketch strategy {self.strategy!r}: later port slice")
+        raise ValueError(self.strategy)
 
     def _matrices(self, n: int, i: int, dev) -> Iterable[torch.Tensor]:
         seed = self.seed * 7919 + i
@@ -109,9 +111,39 @@ class GradientSketcher:
             self._blocks[ck] = list(projection_blocks(n, self.d_sketch, seed, dev))
         return self._blocks[ck]
 
+    def _tensor_norms(self, picked) -> torch.Tensor:
+        """(R, d_sketch): each row's per-leaf norms written as the JAX
+        package writes them, ``out[: n % d or d] = norms[:d]`` for n leaves.
+        The slice is n wide for n <= d and d wide when d divides n; for any
+        other n > d its width differs from the d norms and the JAX package
+        raises, so this does too."""
+        norms = torch.stack(
+            [torch.linalg.vector_norm(l.reshape(l.shape[0], -1).float(), dim=1) for _, l in picked],
+            dim=1,
+        )  # (R, n)
+        R, n = norms.shape
+        d = self.d_sketch
+        width = n % d or d
+        vals = norms[:, :d]
+        if vals.shape[1] != width:
+            raise ValueError(
+                f"Incompatible shapes for broadcasting: {n} leaf norms into a slice of "
+                f"{width} of a {d}-dim sketch ({(vals.shape[1],)} vs {(width,)})"
+            )
+        out = torch.zeros((R, d), dtype=torch.float32, device=norms.device)
+        out[:, :width] = vals
+        return out
+
+    def __call__(self, update) -> torch.Tensor:
+        """update: one client's (unstacked) delta -> (d_sketch,) float32:
+        ``batch`` of a one-row stack."""
+        return self.batch(tree_map(lambda a: a[None], update))[0]
+
     def batch(self, updates) -> torch.Tensor:
         """updates: a (flat or nested) parameter dict whose leaves lead with
         a row axis (R, ...) -> (R, d_sketch) float32 sketches, one per row."""
+        if self.strategy == "tensor_norms":
+            return self._tensor_norms(self._selected(updates))
         acc = None
         for i, (_, leaf) in enumerate(self._selected(updates)):
             flat = leaf.reshape(leaf.shape[0], -1)

@@ -96,3 +96,12 @@ def apply_stacked(opt: ServerOpt, params, state, delta, update_mask: torch.Tenso
         group: tree_map(sel, new_s[group], state[group]) for group in new_s
     }
     return tree_map(sel, new_p, params), new_state
+
+
+# ---------------------------------------------------------------------------
+# q-FedAvg aggregation weights (Li et al., Fair Resource Allocation, ICLR'20)
+# ---------------------------------------------------------------------------
+def qfedavg_weights(losses: torch.Tensor, q: float = 1.0) -> torch.Tensor:
+    """Aggregation weights ∝ loss^q — upweights poorly-served clients."""
+    w = torch.pow(torch.clamp(losses, min=1e-6), q)
+    return w / torch.clamp(w.sum(), min=1e-9)

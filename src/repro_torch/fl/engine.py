@@ -11,8 +11,10 @@ per-cohort reference oracle), ``round_overlap=1`` (the §⑤ depth-2 round
 overlap; ``run``/``evaluate`` drain it first), and ``population_store``
 (§⑥: per-client soft state in a chunked ``PopulationStore``, streaming
 availability, churn through ``apply_churn`` or an attached ``churn``
-stream, ``warm_rearrivals``). Cohort sharding and ``ftfa_eval`` come with
-later slices.
+stream, ``warm_rearrivals``). ``evaluate`` serves every client from its
+serving cohort's model, and ``ftfa_eval`` fine-tunes a 1% sample of
+clients from their serving models and averages their accuracy (§7.2).
+Cohort sharding comes with a later slice.
 
 The engine runs on ``device`` (default "cuda"; constructing it without a
 device on a host without CUDA raises). ``init_params`` (a dict of numpy
@@ -30,7 +32,7 @@ import torch
 from repro_torch import random as rnd
 from repro_torch import resolve_device
 from repro_torch.convert import params_from_numpy
-from repro_torch.core.coordinator import CohortCoordinator
+from repro_torch.core.coordinator import CohortCoordinator, PartitionEvent
 from repro_torch.core.criteria import PartitionCriteria
 from repro_torch.core.selection import CohortSelector
 from repro_torch.core.sketch import GradientSketcher
@@ -46,6 +48,7 @@ from repro_torch.scale import (
     StreamingAvailability,
     make_client_store,
 )
+from repro_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -250,6 +253,13 @@ class AuxoEngine:
         slot = self.pipeline.table.preferred_slot(c, slots)
         return None if slot is None else bank.id_of[slot]
 
+    def client_cluster_index(self, c: int, cohort_id: str) -> int:
+        """The client's sub-cluster index L inside `cohort_id` (-1 unknown)."""
+        slot = self.pipeline.bank.slot_of.get(cohort_id)
+        if slot is None:
+            return -1
+        return self.pipeline.table.cluster_at(c, slot)
+
     # ------------------------------------------------------- stage ② rows
     def _train_cohort(self, params, xs, ys, keys):
         """One cohort's local training (the sequential oracle): unstacked
@@ -299,6 +309,10 @@ class AuxoEngine:
         # churned ids drop their cached data-plane state (sizes, LRU shards)
         self.data.invalidate(np.concatenate([departures, arrivals]))
 
+    def _apply_partition(self, event: PartitionEvent):
+        """Warm-start children + seed child rewards (kept for direct use)."""
+        self.pipeline._apply_partition(event, self.coordinator.tree.leaves())
+
     # ----------------------------------------------------------------- eval
     def _probe_fingerprints(self, cs: np.ndarray, root_params=None) -> np.ndarray:
         """Serve-time probe fingerprints for never-trained clients: each
@@ -330,6 +344,10 @@ class AuxoEngine:
             ctr /= np.linalg.norm(ctr, axis=1, keepdims=True) + 1e-9
             self._probe_cache.put(miss, ctr.astype(np.float32))
         return self._probe_cache.get_many(cs)
+
+    def _probe_fingerprint(self, c: int) -> np.ndarray:
+        """Single-client view of `_probe_fingerprints` (shares its cache)."""
+        return self._probe_fingerprints(np.array([c], np.int64))[0]
 
     def serving_cohorts(self, clients=None) -> List[str]:
         """Cohorts whose models SERVE the given clients (default: all):
@@ -415,6 +433,48 @@ class AuxoEngine:
             "cohort_accs": {l: float(np.mean(list(a.values()))) for l, a in accs_by.items()},
             "per_client": per_client,
         }
+
+
+    # ------------------------------------------------- FTFA personalization
+    def ftfa_eval(self, steps: int = 5) -> float:
+        """Fine-tune-then-average personalization on top of cohort models.
+
+        Every 1%-th client (``n // 100`` apart) fine-tunes its own serving
+        cohort's model, gathered per row from the stacked bank, for
+        ``steps`` plain SGD steps (``lr`` only: no prox, no DP) on batches
+        drawn from the engine's training ``rng`` (the JAX package's
+        stream, draw for draw), all rows in ONE row-stacked ``local_train``.
+        For tasks with ``correct_fraction`` one batched call scores every
+        row on its group's test set; otherwise a per-row ``accuracy`` loop.
+        Returns the mean accuracy.
+        """
+        self.pipeline.flush()
+        cs = np.arange(0, self.data.n_clients, max(1, self.data.n_clients // 100))
+        serving = self.serving_cohorts(cs)
+        bank = self.pipeline.bank
+        slots = torch.as_tensor([bank.slot_of[l] for l in serving], device=self.device)
+        prow = tree_map(lambda a: a[slots], bank.params)
+        xs, ys = self.data.sample_batches(cs, self.fl.batch_size, steps, self.rng)
+        with torch.no_grad():
+            deltas, _ = local_train(
+                self.task.loss, prow, torch.from_numpy(xs).to(self.device),
+                torch.from_numpy(ys).to(self.device), lr=self.fl.lr,
+            )
+            pf = tree_map(torch.add, prow, deltas)
+            groups = self.data.client_groups(cs)
+            tx, ty = self.data.eval_batches()
+            if hasattr(self.task, "correct_fraction"):
+                accs = self.task.correct_fraction(
+                    pf, torch.from_numpy(tx[groups]).to(self.device),
+                    torch.from_numpy(ty[groups]).to(self.device),
+                )
+                return float(accs.mean())
+            accs = []
+            for j in range(cs.size):  # tasks without a batched accuracy
+                p = tree_map(lambda a: a[j], pf)
+                g = int(groups[j])
+                accs.append(self.task.accuracy(p, tx[g], ty[g]))
+        return float(np.mean(accs))
 
 
 def run_fl(task, population, fl: FLConfig, *, device=None, init_params=None) -> List[Dict[str, Any]]:

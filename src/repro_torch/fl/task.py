@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.models.common import dense_init
+from repro_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +87,15 @@ class TransformerTask:
         return l
 
     def correct_fraction(self, params, x, y=None) -> torch.Tensor:
-        """Next-token accuracy of the greedy prediction."""
+        """Next-token accuracy of the greedy prediction: a scalar for tokens
+        (B, S), or (R,) for tokens (R, B, S) with params stacked on a
+        leading row axis (R, ...), each row scored by its own params (the
+        JAX package vmaps this)."""
+        if x.dim() == 3:
+            return torch.stack([
+                self.correct_fraction(tree_map(lambda a: a[j], params), x[j])
+                for j in range(x.shape[0])
+            ])
         logits, _ = self.model.forward(params, {"tokens": x})
         pred = torch.argmax(logits[:, :-1], dim=-1)
         return (pred == x[:, 1:]).float().mean()

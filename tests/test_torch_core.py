@@ -38,7 +38,7 @@ def _clustered(rng, C, P, d, sep=3.0):
     return x.astype(np.float32)
 
 
-@pytest.mark.parametrize("strategy", ["last_block_proj", "full_proj"])
+@pytest.mark.parametrize("strategy", ["last_block_proj", "full_proj", "tensor_norms"])
 def test_sketcher_matches_jax(strategy):
     rng = np.random.default_rng(0)
     R = 5
@@ -47,6 +47,58 @@ def test_sketcher_matches_jax(strategy):
     want = np.asarray(jax.vmap(JSketcher(**kw))({k: jnp.asarray(v) for k, v in deltas.items()}))
     got = TSketcher(**kw).batch({k: torch.from_numpy(v) for k, v in deltas.items()})
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # one unstacked update: batch of a one-row stack
+    one = TSketcher(**kw)({k: torch.from_numpy(v[1]) for k, v in deltas.items()})
+    np.testing.assert_allclose(one.numpy(), np.asarray(JSketcher(**kw)({k: jnp.asarray(v[1]) for k, v in deltas.items()})), **TOL)
+
+
+@pytest.mark.parametrize("n_leaves", [1, 3, 4, 5, 6, 8])
+def test_tensor_norms_slice_matches_jax(n_leaves):
+    """``out[: n % d or d] = norms[:d]`` at d = 4: n < d fills n slots,
+    n = 4 or 8 the first 4 norms; n = 5 or 6 raises ValueError in both."""
+    rng = np.random.default_rng(n_leaves)
+    upd = {f"l{i}": rng.standard_normal((2, 3 + i)).astype(np.float32) for i in range(n_leaves)}
+    js, ts = JSketcher(d_sketch=4, strategy="tensor_norms"), TSketcher(d_sketch=4, strategy="tensor_norms")
+    try:
+        want = np.asarray(js({k: jnp.asarray(v) for k, v in upd.items()}))
+    except ValueError:
+        with pytest.raises(ValueError, match="Incompatible shapes"):
+            ts({k: torch.from_numpy(v) for k, v in upd.items()})
+        assert n_leaves % 4 and n_leaves > 4
+        return
+    got = ts({k: torch.from_numpy(v) for k, v in upd.items()})
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert np.count_nonzero(want) == min(n_leaves, 4)
+
+
+def test_engine_with_tensor_norms_matches_jax():
+    """AuxoConfig(sketch_strategy="tensor_norms") through both engines
+    (tests/test_torch_round.py's 120-client run): the same partitions and
+    leaves, params at the whole-run tolerance."""
+    from repro.data import make_population as jmake
+    from repro.fl import AuxoConfig as JAuxo, AuxoEngine as JEngine, FLConfig as JFL
+    from repro.fl.task import MLPTask as JTask
+    from repro_torch.data import make_population as tmake
+    from repro_torch.fl import AuxoConfig, AuxoEngine, FLConfig, MLPTask
+
+    pop = dict(n_clients=120, n_groups=2, group_sep=0.0, dirichlet=2.0, label_conflict=0.6, seed=0)
+    fl = dict(rounds=12, participants_per_round=40, eval_every=11, seed=0, use_availability=False)
+    auxo = dict(d_sketch=16, cluster_k=2, max_cohorts=2, clustering_start_frac=0.05,
+                partition_start_frac=0.1, min_members=8, sketch_strategy="tensor_norms")
+    je = JEngine(JTask(dim=32, n_classes=10), jmake(**pop), JFL(**fl), JAuxo(**auxo))
+    jh = je.run()
+    te = AuxoEngine(MLPTask(dim=32, n_classes=10), tmake(**pop), FLConfig(**fl), AuxoConfig(**auxo),
+                    device="cpu", init_params={k: np.asarray(v) for k, v in je._init_params.items()})
+    th = te.run()
+    assert te.sketcher.strategy == "tensor_norms"
+    parts = lambda e: [(p.parent, p.children, p.round_idx) for p in e.coordinator.partitions]  # noqa: E731
+    assert parts(je), "the scenario must partition"
+    assert parts(te) == parts(je)
+    assert te.coordinator.tree.leaves() == je.coordinator.tree.leaves()
+    assert [h["n_cohorts"] for h in th] == [h["n_cohorts"] for h in jh]
+    for k, v in je.pipeline.bank.params.items():
+        np.testing.assert_allclose(te.pipeline.bank.params[k].numpy(), np.asarray(v), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("seed", [0, 7, 123])

@@ -23,7 +23,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.models, repro_torch.configs, repro_torch.serve\n"
         "import repro_torch.configs.granite_3_2b, repro_torch.configs.shapes\n"
         "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.checkpoint.npz\n"
-        "import repro_torch.scale, repro_torch.data.plane\n"
+        "import repro_torch.scale, repro_torch.data.plane, repro_torch.fl.baselines\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -77,6 +77,25 @@ def test_core_entry_points_without_device_raise_on_a_cpu_only_host(monkeypatch):
             make()
         make(device="cpu")
     assert CohortCoordinator(d_sketch=8, device="cpu").clusterers["0"].state.centroids.device.type == "cpu"
+
+
+def test_baselines_without_device_raise_on_a_cpu_only_host(monkeypatch):
+    from repro_torch import random as rnd
+    from repro_torch.data import make_population
+    from repro_torch.fl import FLConfig, MLPTask
+    from repro_torch.fl.baselines import CFL, FLHC, IFCA, FlexCFL
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pop = make_population(n_clients=8, n_groups=2, test_per_group=8, seed=0)
+    task = MLPTask(dim=pop.dim, n_classes=pop.n_classes)
+    init = {k: v.numpy() for k, v in task.init(rnd.key(0)).items()}
+    for cls in (IFCA, FLHC, FlexCFL, CFL):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(task, pop, FLConfig(rounds=1), 2)
+        assert cls(task, pop, FLConfig(rounds=1), 2, device="cpu").device.type == "cpu"
+    # init_params: one dict, or IFCA's list of k; they land on the device asked for
+    assert FLHC(task, pop, FLConfig(rounds=1), 2, device="cpu", init_params=init)._init()["w0"].device.type == "cpu"
+    assert IFCA(task, pop, FLConfig(rounds=1), 2, device="cpu", init_params=[init, init])._init(1)["b0"].shape == (64,)
 
 
 def test_later_slices_raise_not_implemented():
