@@ -10,6 +10,7 @@
     python3 chip_smoke.py --lm-train      # build + phase 10 alone
     python3 chip_smoke.py --engine-modes  # build + phase 4's run + phase 11 alone
     python3 chip_smoke.py --eval-baselines  # build + phase 4a and 4's runs + phase 12 alone
+    python3 chip_smoke.py --families      # build + phase 13 alone
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -77,12 +78,30 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      100-client scenario, all finite with their cost invariants, wall
      seconds and ``_agglomerative``'s host seconds apart; (d) every call
      shape of the phase held against the plain version.
+ 13. the model families (plain versions raise on CUDA tensors; the phase's
+     segment launches counted from 0): (a) reduced qwen3-moe and llama4
+     (4 experts), 3 federated rounds and 2 central steps each, on the CPU
+     and twice on the card: equal assignments and counts, states within
+     tests/test_torch_moe.py's margins, the two card runs bit-identical;
+     (b) qwen3-moe-235b-a22b at full width, depth 1 (of 94), float32: 3
+     central steps on 4 x 512 tokens (s/step, tokens/s, the share of the
+     FLOP bound, peak memory, lb/z losses and frac_dropped), the router,
+     dispatch, experts and combine device ms of one forward, a prefill of
+     2 x 512 and 8 served tokens; (c) qwen2-vl-2b (1024 image patches + 512
+     tokens) and musicgen-large (4 codebooks) at full width and depth: one
+     central step, a prefill and 8 served tokens each; (d) every segment
+     call shape of the phase held against the plain version.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
 Memory plan of phase 10b: params, Yogi's m and v (30.4 GB), the two
 clients' deltas, one of them the working copy (20.3 GB), one SGD step's
 gradients (10.1 GB) and checkpointed activations (~1 GB): about 62-64 GB.
+Memory plan of phase 13b: one layer at full width is 3,696,767,104 params
+(2.45B the layer, 1.24B the untied embedding and head); params, Yogi's m
+and v and one set of gradients are 59.1 GB, and ``_yogi_leaf``'s
+temporaries on the largest leaf (an expert weight, 3.22 GB) add up to
+~10 GB: ~70 GB of the card's 80. Two layers would need ~98 GB.
 The last three lines are a JSON kernel report, the card's name and power
 limit, and the JSON result line.
 Imports nothing of JAX or of the JAX package.
@@ -1826,6 +1845,406 @@ def eval_baselines_only(torch) -> int:
     return 0
 
 
+# ------------------------------------------------- phase 13: model families
+QWEN3_MOE = "qwen3-moe-235b-a22b"
+MOE_ARCHS = (QWEN3_MOE, "llama4-maverick-400b-a17b")
+FAM_STEPS = 3  # central steps at full width
+FAM_B, FAM_S = 4, 512  # 4 clients x 512 tokens
+MOE_GROUP = 256  # the config's routing group; cap 24 at top-8 of 128 experts
+# tests/test_torch_moe.py's margins: rtol 1e-4, atol 1e-5 plus F32_FLOOR
+# per tree (twice float32's own error, tests/test_torch_lm_train.py), and
+# for llama4's third federated round twice its own (FedYoGi-amplified) error
+F32_FLOOR = {"params": 1e-4, "opt": 0.0, "clust": 2e-3}
+LLAMA4_ROUND3 = {"params": 9e-3, "opt": 3.5e-4, "clust": 0.07}
+
+
+def fam_small_run(torch, np, arch, dev, seg_log):
+    """13a, one run of a reduced MoE config on ``dev``: 3 rounds of
+    make_train_step (4 clients x 4 x 16 tokens), then 2 steps of
+    make_central_train_step (8 x 16 tokens, 4 clients) from the same init.
+    Every segment call's (K, D, ids) goes into ``seg_log``."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    cfg = reduce_config(get_config(arch)).replace(attn_qchunk=8, ce_chunk=8, moe_group=8)
+    model = build_model(cfg)
+    init = model.init(rnd.key(0), device="cpu")
+    rng = np.random.default_rng(0)
+    toks_a = [rng.integers(0, cfg.vocab, (4, 4, 16)).astype(np.int32) for _ in range(3)]
+    toks_b = [rng.integers(0, cfg.vocab, (8, 16)).astype(np.int32) for _ in range(2)]
+    undo = record(steps.kops, "segment_aggregate", lambda d, i, k, w=None: (int(k), d.shape[-1], i.cpu()),
+                  seg_log)
+    out = {}
+    try:
+        for mode, toks, make in (
+                ("A", toks_a, lambda: steps.make_train_step(model, steps.StepConfig(
+                    local_steps=2, client_lr=0.05, server_lr=0.05, d_sketch=32))),
+                ("B", toks_b, lambda: steps.make_central_train_step(
+                    model, steps.StepConfig(server_lr=0.2, d_sketch=32), n_clients=4))):
+            params = tree_map(lambda a: a.to(dev, copy=True), init)
+            opt, clust = steps.yogi_init(params), steps.clustering_init(2, 32, device=dev)
+            step, losses, counts = make(), [], []
+            for t in toks:
+                params, opt, clust, met = step(params, opt, clust, {"tokens": torch.from_numpy(t).to(dev)})
+                losses.append(float(met["loss"]))
+                counts.append(met["cluster_counts"].tolist())
+            out[mode] = dict(state=(params, opt, clust), losses=losses, counts=counts)
+    finally:
+        undo()
+    return out
+
+
+def fam_small_reference(torch, np):
+    """13a: reduced qwen3-moe and llama4 on the CPU and twice on the card.
+    Card vs CPU: equal assignments and counts, states within the tests'
+    margins; the two card runs bit-identical (loss bits and a float64
+    checksum of every leaf)."""
+    from repro_torch.utils.tree import leaves, leaves_with_path
+
+    report = {}
+    for arch in MOE_ARCHS:
+        logs = {run: [] for run in ("cpu", "cuda", "cuda2")}
+        runs = {run: fam_small_run(torch, np, arch, run.rstrip("2"), logs[run]) for run in logs}
+        cpu, card = runs["cpu"], runs["cuda"]
+        if ([(k, d) for k, d, _ in logs["cuda"]] != [(k, d) for k, d, _ in logs["cpu"]]
+                or not all(torch.equal(a[2], b[2]) for a, b in zip(logs["cuda"], logs["cpu"]))
+                or any(card[m]["counts"] != cpu[m]["counts"] for m in "AB")):
+            raise AssertionError(f"13a {arch}: assignments or counts differ card vs CPU: "
+                                 f"{[card[m]['counts'] for m in 'AB']} vs {[cpu[m]['counts'] for m in 'AB']}")
+        errs = {}
+        for m in "AB":
+            floor = LLAMA4_ROUND3 if (m == "A" and arch.startswith("llama4")) else F32_FLOOR
+            for name, got, want in zip(("params", "opt", "clust"), card[m]["state"], cpu[m]["state"]):
+                want = dict(leaves_with_path(want))
+                for k, v in leaves_with_path(got):
+                    err = (v.cpu() - want[k]).abs().max().item()
+                    errs[f"{m} {name}"] = max(errs.get(f"{m} {name}", 0.0), err)
+                    if not torch.allclose(v.cpu(), want[k], rtol=1e-4, atol=1e-5 + floor[name]):
+                        raise AssertionError(f"13a {arch} mode {m}: {name} {k} differs card vs CPU by {err}")
+
+        def digest(run):
+            return ([float.hex(x) for m in "AB" for x in run[m]["losses"]],
+                    [float(a.double().sum()) for m in "AB" for t in run[m]["state"] for a in leaves(t)])
+
+        if digest(card) != digest(runs["cuda2"]):
+            raise AssertionError(f"13a {arch}: two card runs from the same state differ")
+        ag = [i[0].tolist() for k, d, i in logs["cuda"] if k > 1 and d > 1]
+        report[arch] = dict(errs=errs, assign=ag, counts=[card[m]["counts"] for m in "AB"],
+                            losses=[card[m]["losses"] for m in "AB"], n_leaves=len(leaves(card["A"]["state"][0])))
+        del runs
+    return report
+
+
+def moe_stage_ms(torch, moe, cfg, p_moe, x, reps: int = 5):
+    """Device ms (CUDA events, median of ``reps`` after one warm-up) of the
+    four MoE stages on x (B, S, D); the chained stages must equal moe_apply."""
+    from repro_torch.utils.tree import tree_map
+
+    P = tree_map(lambda a: a[None], p_moe)
+    names = ("router", "dispatch", "experts", "combine")
+    samples = {n: [] for n in names}
+    with torch.no_grad():
+        for r in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            xg = moe.group(cfg, x[None])
+            w, ids, _ = moe.route(P, cfg, xg)
+            ev[1].record()
+            ein, comb, keep = moe.dispatch(cfg, xg, w, ids)
+            ev[2].record()
+            eo = moe.experts(P, ein)
+            ev[3].record()
+            y = moe.combine(comb, eo)
+            ev[4].record()
+            torch.cuda.synchronize()
+            if r:
+                for i, n in enumerate(names):
+                    samples[n].append(ev[i].elapsed_time(ev[i + 1]))
+        want, aux = moe.moe_apply(p_moe, cfg, x)
+    if not torch.equal(y.reshape(x.shape), want):
+        raise AssertionError("13b: the chained MoE stages differ from moe_apply")
+    return {n: statistics.median(v) for n, v in samples.items()}, ein.shape, float(aux["frac_dropped"])
+
+
+def fam_qwen3_phase(torch):
+    """13b: qwen3-moe-235b-a22b at full width, depth 1 (float32): the
+    central step x3 on 4 x 512 tokens, the MoE stages of one forward, a
+    prefill of 2 x 512 and 8 served tokens."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, common, moe, transformer
+    from repro_torch.utils.tree import leaves, tree_map
+
+    model = build_model(get_config(QWEN3_MOE).replace(n_layers=1))
+    cfg = model.cfg
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.n_experts, cfg.top_k, cfg.d_ff, cfg.vocab,
+            cfg.moe_group) != (4096, 64, 4, 128, 8, 1536, 151936, MOE_GROUP):
+        raise AssertionError(f"13b: {QWEN3_MOE} is not at its published width: {cfg}")
+    n_params = model.param_count()
+    n_experts = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(rnd.key(0), device="cuda")
+    opt = steps.yogi_init(params)
+    clust = steps.clustering_init(2, 128, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = steps.make_central_train_step(model, steps.StepConfig(d_sketch=128), n_clients=FAM_B)
+    toks = torch.from_numpy(synth_corpus(FAM_B, 1, FAM_S, cfg.vocab)[0].reshape(FAM_B, FAM_S)).cuda()
+    aux_log = []
+    orig = moe.moe_apply
+
+    def logged(p, c, x):  # the step's forward and its checkpointed recompute
+        y, aux = orig(p, c, x)
+        aux_log.append({k: v.detach() for k, v in aux.items()})
+        return y, aux
+
+    moe.moe_apply = logged
+    secs, losses, counts = [], [], []
+    try:
+        for _ in range(FAM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, clust, met = step(params, opt, clust, {"tokens": toks})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+            counts.append(met["cluster_counts"].tolist())
+    finally:
+        moe.moe_apply = orig
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses) or not all(bool(torch.isfinite(a).all()) for a in leaves(params)):
+        raise AssertionError(f"13b: non-finite loss {losses} or params")
+    if any(sum(c) != FAM_B for c in counts):
+        raise AssertionError(f"13b: cluster counts {counts} do not sum to {FAM_B}")
+    aux = [{k: float(v) for k, v in a.items()} for a in aux_log[::2]]  # each step's forward
+    if len(aux_log) != 2 * FAM_STEPS or not all(math.isfinite(v) for a in aux for v in a.values()):
+        raise AssertionError(f"13b: MoE aux {aux}")
+    T = FAM_B * FAM_S
+    G, cap = T // MOE_GROUP, moe._capacity(MOE_GROUP, cfg)
+    flops = 8 * ((n_params - n_experts) * T + 3 * cfg.d_model * cfg.d_ff * cfg.n_experts * cap * G)
+
+    # the MoE stages of one forward, on the input the layer's MoE sees
+    lay = tree_map(lambda a: a[0], params["backbone"]["blocks"])
+    with torch.no_grad():
+        h = transformer.embed_tokens(params, cfg, toks)
+        pos = common.default_positions(cfg, FAM_B, FAM_S, device=h.device)
+        h = h + common.attention(lay["attn"], cfg, common.rmsnorm(lay["attn_norm"], h, cfg.norm_eps), pos)
+        xm = common.rmsnorm(lay["moe_norm"], h, cfg.norm_eps)
+    stage_ms, ein_shape, frac = moe_stage_ms(torch, moe, cfg, lay["moe"], xm)
+    del h, xm
+    expert_flops = 3 * 2 * cfg.n_experts * G * cap * cfg.d_model * cfg.d_ff
+
+    # serving: a prefill of 2 x 512, then 8 tokens against a fresh cache
+    prompt = toks[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = steps.make_prefill_step(model, steps.StepConfig())(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if tuple(last.shape) != (2, 1, cfg.vocab) or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"13b: prefill logits {tuple(last.shape)} not finite")
+    served, serve_s = serve_tokens(torch, model, params, prompt[:, :1], steps)
+    peak_all = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, step, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, n_experts=n_experts, init_s=init_s, secs=secs, losses=losses,
+                counts=counts, aux=aux, peak_gb=peak_gb, peak_all_gb=peak_all, tokens=T, flops=flops,
+                G=G, cap=cap, stage_ms=stage_ms, ein_shape=tuple(ein_shape), stage_frac=frac,
+                expert_flops=expert_flops, prefill_s=prefill_s, serve_s=serve_s, served=served)
+
+
+def serve_tokens(torch, model, params, cur, steps, n: int = 8):
+    """n greedy tokens through make_serve_step against a fresh 1024-slot
+    cache, from ``cur``; all logits finite and of the reference's shape."""
+    cfg = model.cfg
+    serve = steps.make_serve_step(model, steps.StepConfig())
+    B = cur.shape[0]
+    cache = model.init_cache(B, 1024, device="cuda")
+    want = (B, 1, cfg.n_codebooks, cfg.vocab) if cfg.n_codebooks else (B, 1, cfg.padded_vocab)
+    served = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        logits, cache = serve(params, cache, {"tokens": cur})
+        if tuple(logits.shape) != want or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.arch_id}: serve logits {tuple(logits.shape)} (want {want}) not finite")
+        cur = torch.argmax(logits, dim=-1)
+        if cfg.n_codebooks:
+            cur = cur.transpose(1, 2)  # (B, 1, nc) -> (B, nc, 1)
+        served.append(cur.reshape(B, -1)[:, 0].tolist())
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if any(c["index"].tolist() != [n] * c["index"].shape[0] for c in cache.values()):
+        raise AssertionError(f"{cfg.arch_id}: cache index after {n} tokens")
+    return served, serve_s
+
+
+def fam_full_depth(torch, arch):
+    """13c: one central step, a prefill and 8 served tokens at full width
+    and depth (float32): qwen2-vl-2b with 1024 random image patch
+    embeddings before 512 text tokens, musicgen-large with 4 codebook
+    streams of 512 tokens; 2 sequences, 2 clients."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import leaves
+
+    model = build_model(get_config(arch))
+    cfg = model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(rnd.key(0), device="cuda")
+    opt = steps.yogi_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if cfg.n_codebooks:
+        toks = torch.from_numpy(synth_corpus(2, cfg.n_codebooks, FAM_S, cfg.vocab)[0]).cuda()
+        batch = {"tokens": toks}
+    else:
+        toks = torch.from_numpy(synth_corpus(2, 1, FAM_S, cfg.vocab)[0].reshape(2, FAM_S)).cuda()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        img = torch.randn((2, cfg.vision_patches, cfg.d_model), generator=g, device="cuda")
+        batch = {"tokens": toks, "image_embeds": img}
+    step = steps.make_central_train_step(model, steps.StepConfig(d_sketch=128), n_clients=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, _, met = step(params, opt, steps.clustering_init(2, 128, device="cuda"), batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    loss = float(met["loss"])
+    if not math.isfinite(loss) or not all(bool(torch.isfinite(a).all()) for a in leaves(params)):
+        raise AssertionError(f"13c {arch}: central step not finite (loss {loss})")
+    if sum(met["cluster_counts"].tolist()) != 2:
+        raise AssertionError(f"13c {arch}: cluster counts {met['cluster_counts'].tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = steps.make_prefill_step(model, steps.StepConfig())(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    want = (2, 1, cfg.n_codebooks, cfg.vocab) if cfg.n_codebooks else (2, 1, cfg.padded_vocab)
+    if tuple(last.shape) != want or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"13c {arch}: prefill logits {tuple(last.shape)} (want {want}) not finite")
+    cur = toks[:, :, :1] if cfg.n_codebooks else toks[:, :1]
+    served, serve_s = serve_tokens(torch, model, params, cur, steps)
+    out = dict(n_params=model.param_count(), n_layers=cfg.n_layers, init_s=init_s, step_s=step_s,
+               loss=loss, prefill_s=prefill_s, serve_s=serve_s, served=served,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, seq=FAM_S + (0 if cfg.n_codebooks
+                                                                            else cfg.vision_patches))
+    del params, opt, step, last, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_phase(torch, np, ops, ref, sa, card) -> dict:
+    """Phase 13 (after phase 12 has freed its memory): 13a reduced MoE card
+    vs CPU, 13b qwen3-moe at full width, 13c qwen2-vl-2b and musicgen-large
+    at full width and depth, 13d every segment call shape of the phase
+    held against the plain version. The plain versions raise on CUDA
+    tensors throughout; the segment launches of 13a-13c are counted from 0."""
+    from repro_torch.launch import steps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = {}
+    undo = [forbid_cuda_in_plain(torch, ref),
+            record(steps.kops, "segment_aggregate",
+                   lambda d, i, k, w=None: (tuple(d.shape), int(k), d.dtype, w is not None, i.dtype, d.is_cuda),
+                   shapes)]
+    sa.launches = 0
+    try:
+        small = fam_small_reference(torch, np)
+        for arch, r in small.items():
+            print(f"[families] 13a reduced {arch} (4 experts, d 256, moe_group 8; 3 federated rounds, C 4, "
+                  f"then 2 central steps, C 4): card == CPU assignments {r['assign']}, cluster counts "
+                  f"{r['counts']}; max |card - CPU| {r['errs']} within rtol 1e-4, atol 1e-5 + "
+                  f"tests/test_torch_moe.py's floors; two card runs bit-identical (loss bits, float64 "
+                  f"checksums of {r['n_leaves']} leaves x 2 modes); losses {r['losses']}", flush=True)
+        qw = fam_qwen3_phase(torch)
+        full = {arch: fam_full_depth(torch, arch) for arch in ("qwen2-vl-2b", "musicgen-large")}
+    finally:
+        for u in undo:
+            u()
+    launches = sa.launches
+    # 13a: two card runs of 3 rounds x (2 clustering + a call per leaf) and
+    # 2 central steps x 2; 13b, 13c: 2 a central step
+    want = (2 * sum(3 * (2 + r["n_leaves"]) + 2 * 2 for r in small.values())
+            + 2 * FAM_STEPS + 2 * len(full))
+    shapes = {k[:5]: n for k, n in shapes.items() if k[5]}  # the card's calls
+    if launches != want or launches != sum(shapes.values()):
+        raise AssertionError(f"13: {launches} segment kernel launches, {sum(shapes.values())} calls on "
+                             f"the card, want {want}")
+    s_step = statistics.median(qw["secs"])
+    flop_s = qw["flops"] / FP32_FLOPS
+    print(f"[families] 13b {QWEN3_MOE} full width (d 4096, 64/4 heads, 128 experts top-8, d_ff 1536, vocab "
+          f"151936, capacity 1.25, moe_group 256, f32), depth 1 of 94 ({qw['n_params']:,} params, experts "
+          f"{qw['n_experts']:,}), make_central_train_step on {FAM_B} x {FAM_S} tokens (synth_corpus), "
+          f"4 clients; {card}: init {qw['init_s']:.2f} s; s/step {[round(x, 4) for x in qw['secs']]}; "
+          f"{qw['tokens'] / s_step:.1f} tokens/s (median step {s_step:.4f} s); loss {qw['losses']}; "
+          f"cluster counts {qw['counts']}", flush=True)
+    print(f"[families] 13b {card}: {qw['flops'] / 1e12:.3f} TFLOP a step = 8 x [(P - P_experts) x T + "
+          f"3 x D x F x E x cap x G] with T {qw['tokens']}, G = T/256 = {qw['G']}, cap {qw['cap']}; bound "
+          f"{flop_s:.4f} s at 67 TFLOP/s f32 = {100 * flop_s / s_step:.1f}% of the FLOP bound; peak memory "
+          f"{qw['peak_gb']:.2f} GB (plan ~70 GB of 80; serving included {qw['peak_all_gb']:.2f} GB)",
+          flush=True)
+    print(f"[families] 13b MoE aux by step (lb_loss, z_loss, frac_dropped): "
+          f"{[(round(a['lb_loss'], 5), round(a['z_loss'], 5), round(a['frac_dropped'], 5)) for a in qw['aux']]}",
+          flush=True)
+    st = qw["stage_ms"]
+    # the experts read their weights and slots once and write their outputs
+    ex_bound = bound(4 * (qw["n_experts"] + 2 * math.prod(qw["ein_shape"])), qw["expert_flops"])
+    print(f"[families] 13b {card}: MoE stages of one forward on the layer's input ({FAM_B} x {FAM_S} "
+          f"tokens, expert buffers {qw['ein_shape']}, frac_dropped {qw['stage_frac']:.5f}), CUDA events, "
+          f"median of 5: router {st['router']:.3f} ms, dispatch {st['dispatch']:.3f} ms, experts "
+          f"{st['experts']:.3f} ms (bound {ex_bound[0]:.3f} ms, {ex_bound[1]}), combine "
+          f"{st['combine']:.3f} ms", flush=True)
+    print(f"[families] 13b {card}: prefill 2 x {FAM_S} in {qw['prefill_s']:.4f} s; 8 served tokens "
+          f"against a 1024-slot cache in {qw['serve_s']:.4f} s ({1e3 * qw['serve_s'] / 8:.2f} ms/token), "
+          f"greedy {qw['served']}; all finite", flush=True)
+    for arch, r in full.items():
+        print(f"[families] 13c {arch} full width and depth ({r['n_params']:,} params, {r['n_layers']} "
+              f"layers, f32), 2 x {r['seq']} positions, 2 clients; {card}: init {r['init_s']:.2f} s, "
+              f"central step {r['step_s']:.4f} s (loss {r['loss']:.5f}), prefill {r['prefill_s']:.4f} s, "
+              f"8 served tokens {r['serve_s']:.4f} s, greedy {r['served']}; peak {r['peak_gb']:.2f} GB; "
+              f"all finite, shapes as the reference's", flush=True)
+    # ------------------------------------------------ 13d: call shapes
+    worst = 0.0
+    for id_dtype in sorted({s[4] for s in shapes}, key=str):
+        sigs = [s[:4] for s in shapes if s[4] == id_dtype]
+        worst = max(worst, check_rows(torch, ops, ref, [], sigs, id_dtype)["segment_aggregate"])
+    print(f"[families] segment call shapes of phase 13 {shapes}: {launches} kernel launches, none on the "
+          f"plain version; each shape held against the plain version: max |err| {worst}", flush=True)
+    return dict(launches=launches, worst=worst, qwen3=qw, full=full, small=small)
+
+
+def families_only(torch) -> int:
+    """``--families``: build, then phase 13 alone."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import segment_aggregate as sa
+
+    card = smi()
+    print(card)
+    so = build.build()
+    print(f"[build] {so}")
+    out = families_phase(torch, np, ops, ref, sa, card)
+    print(json.dumps({"phase13_launches": out["launches"], "max_abs_err": out["worst"]}))
+    print(card)
+    return 0
+
+
 def row_json(sig, t):
     return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
@@ -1892,6 +2311,8 @@ def main(argv) -> int:
         return engine_modes_only(torch)
     if "--eval-baselines" in argv:
         return eval_baselines_only(torch)
+    if "--families" in argv:
+        return families_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -2092,6 +2513,15 @@ def main(argv) -> int:
         if r["name"] in ROUND_KERNELS:
             r["eval_baselines_launches"] = ev["launches"][r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], ev["worst"][r["name"]])
+
+    # ------------------------------------------------ phase 13: model families
+    del eng, small
+    fam = families_phase(torch, np, ops, ref, sa, card)
+    if fam["launches"] <= 0:
+        return fail("phase 13 never launched the segment kernel")
+    seg = next(r for r in report if r["name"] == "segment_aggregate")
+    seg["phase13_launches"] = fam["launches"]
+    seg["max_abs_err"] = max(seg["max_abs_err"], fam["worst"])
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

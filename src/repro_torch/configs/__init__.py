@@ -1,9 +1,10 @@
 """Config registry: the 10 assigned architectures + input shapes (the JAX
 package's ``repro.configs``, as data over the port's ModelConfig).
 
-Every entry cites its source. The port runs the dense ones: granite-3-2b at
-full width on the card (``chip_smoke.py``), reduced variants on the CPU in
-the tests.
+Every entry cites its source. The port runs the dense, MoE, VLM and audio
+ones (granite-3-2b, qwen3-moe-235b-a22b at depth 1, qwen2-vl-2b and
+musicgen-large at full width on the card in ``chip_smoke.py``; reduced
+variants on the CPU in the tests); xlstm-1.3b and zamba2-7b raise.
 """
 from __future__ import annotations
 

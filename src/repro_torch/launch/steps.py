@@ -157,11 +157,13 @@ def yogi_apply(params, state, delta, lr=0.02, beta1=0.9, beta2=0.99, tau=1e-3):
 # Gradients per layer
 # ---------------------------------------------------------------------------
 def _per_layer(tree, cfg) -> Any:
-    """``tree`` (params or a same-shaped state) with the block stack split
-    into a list of per-layer dicts of views."""
+    """``tree`` (params or a same-shaped state) with every block stack
+    (``blocks``; llama4's ``dense_blocks`` and ``moe_blocks``) split into a
+    list of per-layer dicts of views."""
     out = dict(tree)
     bb = dict(tree["backbone"])
-    bb["blocks"] = transformer.layers(bb["blocks"], cfg.n_layers)
+    for name, n in transformer.block_stacks(cfg).items():
+        bb[name] = transformer.layers(bb[name], n)
     out["backbone"] = bb
     return out
 
@@ -197,7 +199,8 @@ def loss_and_grads(model: Model, params, batch, window: int = -1):
     loss, aux, _, grads = _grads(lambda t: model.loss(t, batch, window), params, cfg)
     it = iter(grads)
     split = tree_map(lambda a: next(it), _per_layer(params, cfg))
-    split["backbone"]["blocks"] = tree_map(lambda *g: torch.stack(g), *split["backbone"]["blocks"])
+    for name in transformer.block_stacks(cfg):
+        split["backbone"][name] = tree_map(lambda *g: torch.stack(g), *split["backbone"][name])
     return (loss, {k: v.detach() for k, v in aux.items()}), split
 
 

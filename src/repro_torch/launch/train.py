@@ -5,7 +5,13 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --d-model 512 --layers 8 --rounds 100 --checkpoint-every 50
 
-The device is the card unless ``--device cpu`` is given. Checkpoints cover
+Every family the port has runs as the JAX driver runs it: ``--arch`` sets
+the family, and the flags set width, depth and vocabulary (an MoE arch
+keeps its experts, top-k and capacity; a VLM trains on text tokens alone,
+and its M-RoPE sections need a head dim of 128, ``--d-model 1024``, as in
+the JAX driver; audio takes (clients, m, n_codebooks, seq) tokens, where
+the JAX driver's (clients, m, seq) do not fit its codebook embedding). The
+device is the card unless ``--device cpu`` is given. Checkpoints cover
 params, optimizer and clustering state (cohort failover, §5.2), as
 ``.npz`` files the JAX package's ``load_pytree`` reads too.
 """
@@ -54,6 +60,10 @@ def main(argv=None):
         ce_chunk=128,
         attn_qchunk=0,
     )
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(ssm_heads=8, attn_every=2)
+    if cfg.family == "ssm":
+        cfg = cfg.replace(slstm_every=2)
     model = build_model(cfg)
     print(f"{args.arch}: {model.param_count()/1e6:.1f}M params on {dev}")
 
@@ -75,10 +85,10 @@ def main(argv=None):
     m = 2
     t0 = time.time()
     metrics = {}
+    # audio: one token stream per codebook
+    shape = (args.clients, m) + ((cfg.n_codebooks,) if cfg.n_codebooks else ()) + (args.seq,)
     for r in range(args.rounds):
-        toks = torch.from_numpy(
-            rng.integers(0, cfg.vocab, size=(args.clients, m, args.seq)).astype(np.int32)
-        ).to(dev)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=shape).astype(np.int32)).to(dev)
         params, opt, clust, metrics = step(params, opt, clust, {"tokens": toks})
         if r % max(1, args.rounds // 10) == 0:
             print(

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense transformer (``common``, ``transformer``,
-``zoo``); the other families are a later port slice."""
+"""Model zoo of the port: the dense, MoE (``moe``), VLM and audio
+transformers (``common``, ``transformer``, ``zoo``); the SSM and hybrid
+families (``repro.models.ssm``) are a later port slice."""
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.zoo import Model, build_model
 

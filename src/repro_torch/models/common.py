@@ -1,4 +1,5 @@
-"""Shared model building blocks: the dense subset of ``repro.models.common``.
+"""Shared model building blocks: the attention families' part of
+``repro.models.common``.
 
 Every block is ``init(key, cfg) -> params`` plus ``apply(params, x, ...)``.
 Params are nested dicts of tensors with the JAX package's keys and layouts
@@ -12,11 +13,11 @@ axis (R, ...) together with an input that leads with the same R. Each row
 then uses its own weights, and the matmuls over them run as one
 ``torch.bmm``: the port's form of the JAX package's ``vmap`` over bank rows.
 
-Supported: RMSNorm, SwiGLU / GELU MLPs, GQA projections with RoPE and
-qk_norm, the training attention (causal, optionally sliding-window, in
-query chunks under activation checkpointing) and the single-token decode
-against a (ring) KV cache. M-RoPE and MoE are a later port slice and raise
-``NotImplementedError``.
+Supported: RMSNorm, SwiGLU / GELU MLPs, GQA projections with RoPE,
+Qwen2-VL's M-RoPE and qk_norm, the training attention (causal, optionally
+sliding-window, in query chunks under activation checkpointing) and the
+single-token decode against a (ring) KV cache. The MoE layer is
+``models/moe.py``.
 """
 from __future__ import annotations
 
@@ -190,19 +191,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def apply_mrope(x, positions, theta, sections):
-    raise NotImplementedError(f"M-RoPE: {LATER}")
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (..., S, H, hd); positions: (..., 3, S)
+    for the (t, h, w) ids. The hd/2 frequency channels are split into
+    ``sections`` (t, h, w); each section rotates by its own position
+    stream. [arXiv:2409.12191]"""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to hd/2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    angles_all = positions[..., None].float() * freqs  # (..., 3, S, hd/2)
+    # each channel's angle from its section's stream (the JAX package's
+    # one-hot product picks the same values)
+    sec_ids = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                      torch.tensor(sections, device=x.device))
+    angles = angles_all.movedim(-3, -1)[..., torch.arange(hd // 2, device=x.device), sec_ids]
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def default_positions(cfg: ModelConfig, batch: int, seq: int, offset=0, device=None) -> torch.Tensor:
     """(batch, seq) int32 positions ``arange(seq) + offset``; ``offset`` is
-    a scalar or a (batch, 1) tensor (one start per sequence)."""
-    if cfg.mrope_sections:
-        raise NotImplementedError(f"M-RoPE positions: {LATER}")
+    a scalar or a (batch, 1) tensor (one start per sequence). With M-RoPE,
+    (batch, 3, seq): the same ids in each of the (t, h, w) streams."""
     if isinstance(offset, torch.Tensor):
         device = offset.device
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
-    return torch.broadcast_to(pos.to(torch.int32), (batch, seq))
+    pos = torch.broadcast_to(pos.to(torch.int32), (batch, seq))
+    if cfg.mrope_sections:
+        return torch.broadcast_to(pos[:, None, :], (batch, 3, seq))
+    return pos
 
 
 # ---------------------------------------------------------------------------

@@ -12,15 +12,7 @@ from repro_torch import random as rnd
 from repro_torch import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
-from repro_torch.utils.tree import tree_map
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
+from repro_torch.utils.tree import leaves, leaves_with_path, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,12 +45,22 @@ class Model:
         return transformer.decode_step(params, self.cfg, tokens, cache, window)
 
     def param_count(self) -> int:
-        return sum(math.prod(a.shape) for a in _leaves(self.init_shapes()))
+        return sum(math.prod(a.shape) for a in leaves(self.init_shapes()))
 
     def active_param_count(self) -> int:
-        """Active params per token; the dense family's are all of them (MoE
-        configs raise in ``init_shapes``: a later port slice)."""
-        return self.param_count()
+        """Active params per token (MoE: only top_k of n_experts count). As
+        the JAX package counts them: a leaf whose key path names ``'wg'``,
+        ``'wu'`` or ``'wd'`` and ``moe`` (llama4's shared expert included)
+        counts ``n * top_k // n_experts``."""
+        if not self.cfg.is_moe_arch:
+            return self.param_count()
+        total = 0
+        for path, leaf in leaves_with_path(self.init_shapes()):
+            n = math.prod(leaf.shape)
+            if any(w in path for w in ("'wg'", "'wu'", "'wd'")) and "moe" in path:
+                n = n * self.cfg.top_k // self.cfg.n_experts
+            total += n
+        return total
 
     def init_bank(self, key, n_slots: int, device=None) -> Dict[str, Any]:
         """A cohort bank of ``n_slots`` models on ``device`` (as ``init``),

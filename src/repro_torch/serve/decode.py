@@ -59,7 +59,8 @@ def make_decode_step(cfg, attend: Callable) -> Callable:
     row's current position. Returns logits (R, lanes, V).
     """
     if cfg.family != "dense":
-        raise NotImplementedError(f"paged decode of the {cfg.family} family: {LATER}")
+        # the JAX package's decoder asserts the dense family too
+        raise NotImplementedError(f"paged decode serves the dense family only, not {cfg.family}")
     if cfg.sliding_window:
         raise NotImplementedError("paged decode is full-attention only (no sliding window)")
 
