@@ -11,6 +11,7 @@
     python3 chip_smoke.py --engine-modes  # build + phase 4's run + phase 11 alone
     python3 chip_smoke.py --eval-baselines  # build + phase 4a and 4's runs + phase 12 alone
     python3 chip_smoke.py --families      # build + phase 13 alone
+    python3 chip_smoke.py --ssm           # build + phase 14 alone
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -91,6 +92,22 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      tokens) and musicgen-large (4 codebooks) at full width and depth: one
      central step, a prefill and 8 served tokens each; (d) every segment
      call shape of the phase held against the plain version.
+ 14. the SSM and hybrid families (plain versions raise on CUDA tensors;
+     the phase's segment launches counted from 0): (a) reduced xlstm-1.3b
+     and zamba2-7b (``ssm_chunk`` 16; zamba2's central steps at 5 layers,
+     ``attn_every`` 2, so the shared block is applied twice and a tail
+     layer runs), 3 federated rounds and 2 central steps each, on the CPU
+     and twice on the card: equal assignments and counts, every step's
+     state within tests/test_torch_ssm_families.py's margins, the two card
+     runs bit-identical; 8 tokens decoded one at a time against the
+     chunked forward (5e-3, tests/test_models.py's); (b) xlstm-1.3b at full
+     width and depth, float32: 2 federated rounds on 2 clients x 2 x 512
+     tokens (s/round, tokens/s, the share of the FLOP bound, peak memory,
+     the sketch's device seconds, every aggregation call's ms), one sLSTM
+     layer's time loop alone, a prefill of 2 x 512 and 8 served tokens;
+     (c) zamba2-7b at full width, depth 39 of 81: 2 central steps on 4 x
+     512 tokens, a prefill and 8 served tokens; (d) every segment call
+     shape of the phase held against the plain version, the largest timed.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -102,6 +119,12 @@ Memory plan of phase 13b: one layer at full width is 3,696,767,104 params
 and v and one set of gradients are 59.1 GB, and ``_yogi_leaf``'s
 temporaries on the largest leaf (an expert weight, 3.22 GB) add up to
 ~10 GB: ~70 GB of the card's 80. Two layers would need ~98 GB.
+Memory plan of phase 14b: xlstm-1.3b's params, Yogi's m and v (24.2 GB),
+the two clients' deltas (16.2 GB), one SGD step's gradients (8.1 GB);
+the aggregation then frees each delta leaf as FedYoGi takes it (three
+2.8 GB temporaries on ``w_up``): ~50-56 GB. Phase 14c: zamba2-7b at
+depth 39 is 3,475,767,600 params; params, m, v and gradients are 55.6 GB
+(at depth 81, 108 GB: the cut's reason).
 The last three lines are a JSON kernel report, the card's name and power
 limit, and the JSON result line.
 Imports nothing of JAX or of the JAX package.
@@ -2082,7 +2105,7 @@ def serve_tokens(torch, model, params, cur, steps, n: int = 8):
         served.append(cur.reshape(B, -1)[:, 0].tolist())
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    if any(c["index"].tolist() != [n] * c["index"].shape[0] for c in cache.values()):
+    if any(c["index"].tolist() != [n] * c["index"].shape[0] for c in cache.values() if "index" in c):
         raise AssertionError(f"{cfg.arch_id}: cache index after {n} tokens")
     return served, serve_s
 
@@ -2245,6 +2268,476 @@ def families_only(torch) -> int:
     return 0
 
 
+# ------------------------------------------- phase 14: SSM and hybrid families
+XLSTM, ZAMBA2 = "xlstm_1_3b", "zamba2_7b"
+SSM_ROUNDS = 2  # 14b: the first round bootstraps the clustering, the second takes the EMA path
+SSM_C, SSM_M, SSM_S = 2, 2, 512  # clients, sequences per client, tokens per sequence
+SSM_STEPS = 2  # 14c central steps
+ZAMBA2_DEPTH = 39  # of 81: 6 superblocks of 6 Mamba-2 layers (+ the shared block) and the 3-layer tail
+SSM_SMALL_S = 32  # 14a tokens per sequence: two SSD chunks of 16
+# 14a's margins, per tree and step: twice float32's own error against a
+# float64 run of the port, as tests/test_torch_ssm_families.py measured it
+# on this scenario (its configs, seeds and tokens; the larger of JAX's and
+# the port's), on top of rtol 1e-4, atol 1e-5. zamba2's shared attention
+# is nearly one-hot at the reduced width and FedYoGi's sign amplifies the
+# rounding from round to round, so its later federated rounds carry more.
+SSM_FLOORS = {
+    (XLSTM, "A"): [{"params": 2.4e-5, "opt": 4.9e-7, "clust": 9.1e-4},
+                   {"params": 3.9e-5, "opt": 1.5e-6, "clust": 9.7e-4},
+                   {"params": 1.8e-4, "opt": 7.1e-6, "clust": 1.6e-3}],
+    (XLSTM, "B"): [{"params": 9.2e-7, "opt": 9.2e-9, "clust": 4.8e-7},
+                   {"params": 2.1e-6, "opt": 2.1e-8, "clust": 5.7e-7}],
+    (ZAMBA2, "A"): [{"params": 5.7e-5, "opt": 2.3e-6, "clust": 9.6e-3},
+                    {"params": 7.9e-3, "opt": 3.2e-4, "clust": 0.042},
+                    {"params": 0.015, "opt": 5.1e-4, "clust": 0.22}],
+    (ZAMBA2, "B"): [{"params": 1.6e-5, "opt": 1.6e-7, "clust": 1.8e-6},
+                    {"params": 1.7e-3, "opt": 1.7e-5, "clust": 1.4e-5}],
+}
+
+
+def ssm_small_cfgs(arch):
+    """14a's configs: the reduced config (attention in query chunks of 8, CE
+    in chunks of 8) for the federated rounds (A) and the central steps (B);
+    zamba2's B with 5 layers at attn_every 2 (two superblocks, the shared
+    block applied twice, a tail layer), as in the tests."""
+    from repro_torch.configs import get_config, reduce_config
+
+    cfg = reduce_config(get_config(arch)).replace(attn_qchunk=8, ce_chunk=8)
+    return {"A": cfg, "B": cfg.replace(n_layers=5, attn_every=2) if arch == ZAMBA2 else cfg}
+
+
+def ssm_small_run(torch, np, arch, dev, seg_log):
+    """14a, one run on ``dev``: 3 rounds of make_train_step (4 clients x 2 x
+    32 tokens), then 2 steps of make_central_train_step (8 x 32 tokens, 4
+    clients), each from params drawn on the CPU from key 5 (the tests'
+    tokens, seeds 10-12 and 20-21). Every segment call's (K, D, ids) goes
+    into ``seg_log``; each step's state is kept (float64 copies on the
+    CPU)."""
+    from repro_torch import random as rnd
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    cfgs = ssm_small_cfgs(arch)
+    toks_a = [np.random.default_rng(10 + r).integers(0, cfgs["A"].vocab, (4, 2, SSM_SMALL_S)).astype(np.int32)
+              for r in range(3)]
+    toks_b = [np.random.default_rng(20 + r).integers(0, cfgs["B"].vocab, (8, SSM_SMALL_S)).astype(np.int32)
+              for r in range(2)]
+    undo = record(steps.kops, "segment_aggregate", lambda d, i, k, w=None: (int(k), d.shape[-1], i.cpu()),
+                  seg_log)
+    out = {}
+    try:
+        for mode, toks, make in (
+                ("A", toks_a, lambda m: steps.make_train_step(m, steps.StepConfig(
+                    local_steps=2, client_lr=0.05, server_lr=0.05, d_sketch=32))),
+                ("B", toks_b, lambda m: steps.make_central_train_step(
+                    m, steps.StepConfig(server_lr=0.2, d_sketch=32), n_clients=4))):
+            model = build_model(cfgs[mode])
+            params = tree_map(lambda a: a.to(dev), model.init(rnd.key(5), device="cpu"))
+            opt, clust = steps.yogi_init(params), steps.clustering_init(2, 32, device=dev)
+            step, losses, counts, states = make(model), [], [], []
+            for t in toks:
+                params, opt, clust, met = step(params, opt, clust, {"tokens": torch.from_numpy(t).to(dev)})
+                losses.append(float(met["loss"]))
+                counts.append(met["cluster_counts"].tolist())
+                states.append([tree_map(lambda a: a.detach().to("cpu", torch.float64, copy=True), s)
+                               for s in (params, opt, clust)])
+            out[mode] = dict(states=states, losses=losses, counts=counts)
+    finally:
+        undo()
+    return out
+
+
+def ssm_small_reference(torch, np):
+    """14a: the reduced xlstm and zamba2 on the CPU and twice on the card.
+    Card vs CPU: equal assignments and counts, every step's state within
+    ``SSM_FLOORS``; the two card runs bit-identical."""
+    from repro_torch.utils.tree import leaves, leaves_with_path
+
+    report = {}
+    for arch in (XLSTM, ZAMBA2):
+        logs = {run: [] for run in ("cpu", "cuda", "cuda2")}
+        runs = {run: ssm_small_run(torch, np, arch, run.rstrip("2"), logs[run]) for run in logs}
+        cpu, card = runs["cpu"], runs["cuda"]
+        if ([(k, d) for k, d, _ in logs["cuda"]] != [(k, d) for k, d, _ in logs["cpu"]]
+                or not all(torch.equal(a[2], b[2]) for a, b in zip(logs["cuda"], logs["cpu"]))
+                or any(card[m]["counts"] != cpu[m]["counts"] for m in "AB")):
+            raise AssertionError(f"14a {arch}: assignments or counts differ card vs CPU: "
+                                 f"{[card[m]['counts'] for m in 'AB']} vs {[cpu[m]['counts'] for m in 'AB']}")
+        errs = {}
+        for m in "AB":
+            for r, (got_r, want_r) in enumerate(zip(card[m]["states"], cpu[m]["states"])):
+                for name, got, want in zip(("params", "opt", "clust"), got_r, want_r):
+                    want, floor = dict(leaves_with_path(want)), SSM_FLOORS[(arch, m)][r][name]
+                    for k, v in leaves_with_path(got):
+                        err = (v - want[k]).abs().max().item()
+                        errs[f"{m} {name}"] = max(errs.get(f"{m} {name}", 0.0), err)
+                        if not torch.allclose(v, want[k], rtol=1e-4, atol=1e-5 + floor):
+                            raise AssertionError(f"14a {arch} mode {m} step {r}: {name} {k} differs card vs CPU "
+                                                 f"by {err} (margin: rtol 1e-4, atol 1e-5 + {floor})")
+
+        def digest(run):
+            return ([float.hex(x) for m in "AB" for x in run[m]["losses"]],
+                    [float(a.sum()) for m in "AB" for s in run[m]["states"] for t in s for a in leaves(t)])
+
+        if digest(card) != digest(runs["cuda2"]):
+            raise AssertionError(f"14a {arch}: two card runs from the same state differ")
+        n_leaves = {m: len(leaves(card[m]["states"][0][0])) for m in "AB"}
+        ag = [i[0].tolist() for k, d, i in logs["cuda"] if k > 1 and d > 1]
+        report[arch] = dict(errs=errs, assign=ag, counts=[card[m]["counts"] for m in "AB"],
+                            losses=[card[m]["losses"] for m in "AB"], n_leaves=n_leaves)
+        del runs
+    return report
+
+
+def ssm_decode_check(torch, np, arch):
+    """14a: the chunked forward against token-by-token decode on the card
+    (the reduced config, full attention, B 2 x 8 tokens): the logits agree
+    at tests/test_models.py's 5e-3 (the recurrence against its chunked
+    form)."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import build_model
+
+    model = build_model(reduce_config(get_config(arch)).replace(attn_qchunk=0))
+    params = model.init(rnd.key(0), device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(1).integers(0, model.cfg.vocab, (2, 8)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        full, _ = model.forward(params, {"tokens": tok})
+        cache = model.init_cache(2, 8, device="cuda")
+        outs = []
+        for t in range(8):
+            logits, cache = model.decode_step(params, tok[:, t:t + 1], cache)
+            outs.append(logits)
+    dec = torch.cat(outs, dim=1)
+    err = (dec - full).abs().max().item()
+    if not torch.allclose(dec, full, rtol=5e-3, atol=5e-3):
+        raise AssertionError(f"14a {arch}: decode differs from the chunked forward by {err}")
+    return err
+
+
+def slstm_probe(torch, params, cfg):
+    """14b: one sLSTM layer of the round at a client step's shape (1 x 512
+    tokens): its forward's aten ops on the card (one launch or more each),
+    and the host seconds of a forward alone and of a forward and backward."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import ssm
+    from repro_torch.utils.tree import leaves, tree_map
+
+    p = tree_map(lambda a: a[-1].detach().clone().requires_grad_(True), params["backbone"]["slstm"])
+    x = torch.randn((1, SSM_S, cfg.d_model), device="cuda", requires_grad=True)
+
+    def fwd():
+        with torch.no_grad():
+            return ssm.slstm_apply(p, cfg, x)
+
+    def fwd_bwd():
+        return torch.autograd.grad(ssm.slstm_apply(p, cfg, x).sum(), [x] + leaves(p))
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    secs = {}
+    for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    with Count():
+        fwd()
+    torch.cuda.synchronize()
+    return dict(secs=secs, fwd_ops=Count.n)
+
+
+def ssm_xlstm_phase(torch):
+    """14b: xlstm-1.3b at full width and depth (float32, seed 0): 2
+    federated rounds of make_train_step with 2 clients x 2 x 512 tokens,
+    the sLSTM probe, then a prefill of 2 x 512 and 8 served tokens."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.core.sketch import GradientSketcher
+    from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import leaves
+
+    model = build_model(get_config(XLSTM))
+    cfg = model.cfg
+    if (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.slstm_every, cfg.ssm_expand, cfg.vocab) != (
+            2048, 48, 4, 8, 2, 50304):
+        raise AssertionError(f"14b: {XLSTM} is not at its published width and depth: {cfg}")
+    n_params = model.param_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(rnd.key(0), device="cuda")
+    opt = steps.yogi_init(params)
+    clust = steps.clustering_init(2, 128, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sc = steps.StepConfig(local_steps=2, d_sketch=128)
+    step = steps.make_train_step(model, sc)
+    toks_np, groups = synth_corpus(SSM_C, SSM_M, SSM_S, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks_np).cuda()}
+    sk_log, agg_log = [], []
+    undo = [record(GradientSketcher, "batch", lambda self, u: "sketch", sk_log, torch),
+            record(steps.kops, "segment_aggregate",
+                   lambda d, i, k, w=None: (tuple(d.shape), int(k), w is not None), agg_log, torch)]
+    # each client SGD step's global-norm clip scale (0-dim tensors, read
+    # after the rounds)
+    scales, clip = [], steps._clip_scale
+    steps._clip_scale = lambda grads, c: scales.append(clip(grads, c)) or scales[-1]
+    undo.append(lambda: setattr(steps, "_clip_scale", clip))
+    secs, losses, counts = [], [], []
+    launches0 = sa.launches
+    try:
+        for _ in range(SSM_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, clust, met = step(params, opt, clust, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+            counts.append(met["cluster_counts"].tolist())
+    finally:
+        for u in undo:
+            u()
+    launches = sa.launches - launches0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaves = len(leaves(params))
+    if not all(math.isfinite(v) for v in losses) or not all(bool(torch.isfinite(a).all()) for a in leaves(params)):
+        raise AssertionError(f"14b: non-finite loss {losses} or params")
+    if any(sum(c) != SSM_C for c in counts):
+        raise AssertionError(f"14b: cluster counts {counts} do not sum to {SSM_C}")
+    if launches != SSM_ROUNDS * (2 + n_leaves) or len(agg_log) != launches:
+        raise AssertionError(f"14b: {launches} segment kernel launches and {len(agg_log)} calls, want "
+                             f"{SSM_ROUNDS} x (2 + {n_leaves})")
+    agg = {}
+    for sig, a, b in agg_log:
+        agg.setdefault(sig, []).append(a.elapsed_time(b))
+    tokens = SSM_C * SSM_M * SSM_S
+    n_embed = cfg.padded_vocab * cfg.d_model  # a gather, not a product
+    flops = 8 * (n_params - n_embed) * tokens  # forward, backward and the forward recompute
+    # the last-block sketch's values: l[-1] of every backbone leaf (the
+    # last group), the head and the final norm
+    n_last = (sum(a[-1].numel() for a in leaves(params["backbone"]) if a.dim() >= 2)
+              + params["head"].numel() + params["final_norm"]["scale"].numel())
+    probe = slstm_probe(torch, params, cfg)
+
+    prompt = batch["tokens"][:, 0]  # (2, 512): each client's first sequence
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = steps.make_prefill_step(model, sc)(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if tuple(last.shape) != (2, 1, cfg.padded_vocab) or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"14b: prefill logits {tuple(last.shape)} not finite")
+    served, serve_s = serve_tokens(torch, model, params, prompt[:, :1], steps)
+    peak_all = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, step, last, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, init_s=init_s, secs=secs, losses=losses, counts=counts,
+                scales=[float(x) for x in scales], groups=groups.tolist(), launches=launches, n_leaves=n_leaves, peak_gb=peak_gb,
+                peak_all_gb=peak_all, tokens=tokens, flops=flops, sk_ms=[a.elapsed_time(b) for _, a, b in sk_log],
+                n_last=n_last, agg=agg, probe=probe, prefill_s=prefill_s, serve_s=serve_s, served=served)
+
+
+def ssm_zamba2_phase(torch):
+    """14c: zamba2-7b at full width, depth 39 of 81 (float32, seed 0): 2
+    central steps on 4 x 512 tokens, then a prefill of 2 x 512 and 8 served
+    tokens."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, transformer
+    from repro_torch.utils.tree import leaves
+
+    full = get_config(ZAMBA2)
+    model = build_model(full.replace(n_layers=ZAMBA2_DEPTH))
+    cfg = model.cfg
+    if (cfg.d_model, cfg.n_heads, cfg.ssm_heads, cfg.ssm_state, cfg.d_ff, cfg.vocab, cfg.attn_every) != (
+            3584, 32, 112, 64, 14336, 32000, 6):
+        raise AssertionError(f"14c: {ZAMBA2} is not at its published width: {cfg}")
+    stacks = transformer.block_stacks(cfg)
+    n_params = model.param_count()
+    n_shared = sum(a.numel() for a in leaves(model.init_shapes()["backbone"]["shared_attn"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(rnd.key(0), device="cuda")
+    opt = steps.yogi_init(params)
+    clust = steps.clustering_init(2, 128, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = steps.make_central_train_step(model, steps.StepConfig(d_sketch=128), n_clients=FAM_B)
+    toks = torch.from_numpy(synth_corpus(FAM_B, 1, SSM_S, cfg.vocab)[0].reshape(FAM_B, SSM_S)).cuda()
+    secs, losses, counts = [], [], []
+    for _ in range(SSM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, clust, met = step(params, opt, clust, {"tokens": toks})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        counts.append(met["cluster_counts"].tolist())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses) or not all(bool(torch.isfinite(a).all()) for a in leaves(params)):
+        raise AssertionError(f"14c: non-finite loss {losses} or params")
+    if any(sum(c) != FAM_B for c in counts):
+        raise AssertionError(f"14c: cluster counts {counts} do not sum to {FAM_B}")
+    T = FAM_B * SSM_S
+    n_super = stacks["mamba"][0]
+    # the shared block counts once per application; the embedding is a gather
+    flops = 8 * (n_params - cfg.padded_vocab * cfg.d_model + (n_super - 1) * n_shared) * T
+    prompt = toks[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = steps.make_prefill_step(model, steps.StepConfig())(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if tuple(last.shape) != (2, 1, cfg.padded_vocab) or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"14c: prefill logits {tuple(last.shape)} not finite")
+    served, serve_s = serve_tokens(torch, model, params, prompt[:, :1], steps)
+    peak_all = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, step, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, n_full=build_model(full).param_count(), stacks=stacks, n_shared=n_shared,
+                init_s=init_s, secs=secs, losses=losses, counts=counts, peak_gb=peak_gb, peak_all_gb=peak_all,
+                tokens=T, flops=flops, prefill_s=prefill_s, serve_s=serve_s, served=served)
+
+
+def ssm_phase(torch, np, ops, ref, sa, card) -> dict:
+    """Phase 14 (after phase 13 has freed its memory): 14a reduced xlstm and
+    zamba2 card vs CPU and card vs card, decode vs the chunked forward; 14b
+    xlstm-1.3b's federated round at full width and depth; 14c zamba2-7b's
+    central step at full width, depth 39; 14d every segment call shape of
+    the phase held against the plain version, and the largest timed. The
+    plain versions raise on CUDA tensors throughout; the segment launches
+    of 14a-14c are counted from 0."""
+    from repro_torch.launch import steps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = {}
+    undo = [forbid_cuda_in_plain(torch, ref),
+            record(steps.kops, "segment_aggregate",
+                   lambda d, i, k, w=None: (tuple(d.shape), int(k), d.dtype, w is not None, i.dtype, d.is_cuda),
+                   shapes)]
+    sa.launches = 0
+    t_phase = time.perf_counter()
+    try:
+        small = ssm_small_reference(torch, np)
+        for arch, r in small.items():
+            print(f"[ssm] 14a reduced {arch} (d 256, ssm_chunk 16; 3 federated rounds, C 4 x 2 x "
+                  f"{SSM_SMALL_S} tokens, then 2 central steps, C 4{', 5 layers at attn_every 2' if arch == ZAMBA2 else ''}): "
+                  f"card == CPU assignments {r['assign']}, cluster counts {r['counts']}; max |card - CPU| "
+                  f"{r['errs']} within rtol 1e-4, atol 1e-5 + twice float32's own error per tree and step "
+                  f"(tests/test_torch_ssm_families.py's measurement); two "
+                  f"card runs bit-identical (loss bits, float64 checksums of every leaf after every step); "
+                  f"losses {r['losses']}", flush=True)
+        for arch in (XLSTM, ZAMBA2):
+            err = ssm_decode_check(torch, np, arch)
+            print(f"[ssm] 14a reduced {arch}: 8 tokens decoded one at a time against the chunked forward "
+                  f"on the card: max |err| {err:.3e} (tests/test_models.py's 5e-3)", flush=True)
+        xl = ssm_xlstm_phase(torch)
+        zb = ssm_zamba2_phase(torch)
+    finally:
+        for u in undo:
+            u()
+    launches = sa.launches
+    # 14a: two card runs of 3 rounds x (2 clustering + a call per leaf) and
+    # 2 central steps x 2; 14b a round 2 + a call per leaf; 14c 2 a step
+    want = (2 * sum(3 * (2 + r["n_leaves"]["A"]) + 2 * 2 for r in small.values())
+            + SSM_ROUNDS * (2 + xl["n_leaves"]) + 2 * SSM_STEPS)
+    shapes = {k[:5]: n for k, n in shapes.items() if k[5]}  # the card's calls
+    if launches != want or launches != sum(shapes.values()):
+        raise AssertionError(f"14: {launches} segment kernel launches, {sum(shapes.values())} calls on the card, "
+                             f"want {want}")
+    s_round = statistics.median(xl["secs"])
+    flop_s = xl["flops"] / FP32_FLOPS
+    print(f"[ssm] 14b {XLSTM} full width and depth ({xl['n_params']:,} params, f32, 6 groups of 7 mLSTM + 1 "
+          f"sLSTM, d 2048, 4 heads, ssm_chunk 256), {SSM_C} clients x {SSM_M} x {SSM_S} tokens (synth_corpus "
+          f"groups {xl['groups']}), local_steps 2, d_sketch 128; {card}: init {xl['init_s']:.2f} s; s/round "
+          f"{[round(x, 4) for x in xl['secs']]}; loss by round {[round(x, 5) for x in xl['losses']]}; cluster "
+          f"counts {xl['counts']}; the clip scale of each client SGD step {xl['scales']} (0 where the float32 "
+          f"global norm of the gradients overflows)", flush=True)
+    print(f"[ssm] 14b {card}: {xl['tokens'] / s_round:.1f} tokens/s (median round {s_round:.4f} s); "
+          f"{xl['flops'] / 1e12:.3f} TFLOP a round (8 x (P - embedding) x {xl['tokens']} tokens) bound "
+          f"{flop_s:.4f} s at 67 TFLOP/s f32 = {100 * flop_s / s_round:.1f}% of the FLOP bound; peak memory "
+          f"{xl['peak_gb']:.2f} GB (serving included {xl['peak_all_gb']:.2f} GB)", flush=True)
+    print(f"[ssm] 14b {card}: sketch per round {[round(x / 1e3, 3) for x in xl['sk_ms']]} s of device time "
+          f"({SSM_C} x {xl['n_last']:,} last-group and head values; the clients share the "
+          f"{xl['n_last'] * 128 / 1e9:.1f}G Rademacher draws of a round)", flush=True)
+    pr = xl["probe"]
+    print(f"[ssm] 14b {card}: one sLSTM layer at 1 x {SSM_S} tokens: {pr['fwd_ops']} aten ops on the card "
+          f"in its forward ({pr['fwd_ops'] / SSM_S:.1f} a time step), forward {pr['secs']['fwd']:.4f} s, forward "
+          f"+ backward {pr['secs']['fwd_bwd']:.4f} s; x 6 layers x 4 client SGD steps = "
+          f"{24 * pr['secs']['fwd_bwd']:.3f} s = {100 * 24 * pr['secs']['fwd_bwd'] / s_round:.1f}% of the median "
+          f"round", flush=True)
+    for sig, ms in sorted(xl["agg"].items(), key=lambda kv: -math.prod(kv[0][0])):
+        (C, P, D), K, w = sig
+        b = bound(C * P * D * 4 + C * P * (8 if w else 4) + C * K * D * 4, C * P * D * (2 if w else 1))
+        print(f"[ssm] 14b segment call {sig} x{len(ms)}: {statistics.median(ms):.4f} ms median (events, in "
+              f"the step) against its bound {b[0]:.4f} ms ({b[1]})", flush=True)
+    print(f"[ssm] 14b {card}: prefill 2 x {SSM_S} in {xl['prefill_s']:.4f} s; 8 served tokens against a "
+          f"fresh cache in {xl['serve_s']:.4f} s ({1e3 * xl['serve_s'] / 8:.2f} ms/token), greedy "
+          f"{xl['served']}; all finite", flush=True)
+    s_step = statistics.median(zb["secs"])
+    zflop_s = zb["flops"] / FP32_FLOPS
+    print(f"[ssm] 14c {ZAMBA2} full width (d 3584, 112 SSM heads of 64, state 64, shared block 32 heads, "
+          f"d_ff 14336), depth {ZAMBA2_DEPTH} of 81 (stacks {zb['stacks']}; {zb['n_params']:,} params of "
+          f"{zb['n_full']:,}; the cut: 81 layers' central step needs ~108 GB), make_central_train_step on "
+          f"{FAM_B} x {SSM_S} tokens, 4 clients; {card}: init {zb['init_s']:.2f} s; s/step "
+          f"{[round(x, 4) for x in zb['secs']]}; {zb['tokens'] / s_step:.1f} tokens/s; loss {zb['losses']}; "
+          f"cluster counts {zb['counts']}", flush=True)
+    print(f"[ssm] 14c {card}: {zb['flops'] / 1e12:.3f} TFLOP a step (8 x (P - embedding + "
+          f"{zb['stacks']['mamba'][0] - 1} x {zb['n_shared']:,} shared-block params applied again) x "
+          f"{zb['tokens']}) bound {zflop_s:.4f} s = {100 * zflop_s / s_step:.1f}% of the FLOP bound; peak "
+          f"memory {zb['peak_gb']:.2f} GB (serving included {zb['peak_all_gb']:.2f} GB); prefill 2 x {SSM_S} "
+          f"in {zb['prefill_s']:.4f} s; 8 served tokens in {zb['serve_s']:.4f} s "
+          f"({1e3 * zb['serve_s'] / 8:.2f} ms/token), greedy {zb['served']}; all finite", flush=True)
+    # ------------------------------------------------ 14d: call shapes
+    worst = 0.0
+    for id_dtype in sorted({s[4] for s in shapes}, key=str):
+        sigs = [s[:4] for s in shapes if s[4] == id_dtype]
+        worst = max(worst, check_rows(torch, ops, ref, [], sigs, id_dtype)["segment_aggregate"])
+    print(f"[ssm] segment call shapes of phase 14 {shapes}: {launches} kernel launches, none on the plain "
+          f"version; each shape held against the plain version: max |err| {worst}", flush=True)
+    largest = max((s[:4] for s in shapes), key=lambda s: math.prod(s[0]))
+    t = time_segment(torch, ops, ref, largest, id_dtype=torch.int32, inner=3, reps=5)
+    print_row("segment_aggregate", f"phase 14's largest call {largest}", t)
+    print(f"[ssm] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, worst=worst, row=row_json(largest, t))
+
+
+def ssm_only(torch) -> int:
+    """``--ssm``: build, then phase 14 alone."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import segment_aggregate as sa
+
+    card = smi()
+    print(card)
+    so = build.build()
+    print(f"[build] {so}")
+    out = ssm_phase(torch, np, ops, ref, sa, card)
+    print(json.dumps({"phase14_launches": out["launches"], "max_abs_err": out["worst"], "row": out["row"]}))
+    print(card)
+    return 0
+
+
 def row_json(sig, t):
     return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
@@ -2313,6 +2806,8 @@ def main(argv) -> int:
         return eval_baselines_only(torch)
     if "--families" in argv:
         return families_only(torch)
+    if "--ssm" in argv:
+        return ssm_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -2522,6 +3017,14 @@ def main(argv) -> int:
     seg = next(r for r in report if r["name"] == "segment_aggregate")
     seg["phase13_launches"] = fam["launches"]
     seg["max_abs_err"] = max(seg["max_abs_err"], fam["worst"])
+
+    # ------------------------------------------- phase 14: SSM and hybrid
+    ssm = ssm_phase(torch, np, ops, ref, sa, card)
+    if ssm["launches"] <= 0:
+        return fail("phase 14 never launched the segment kernel")
+    seg["phase14_launches"] = ssm["launches"]
+    seg["phase14_largest"] = ssm["row"]
+    seg["max_abs_err"] = max(seg["max_abs_err"], ssm["worst"])
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

@@ -1,10 +1,11 @@
 """Config registry: the 10 assigned architectures + input shapes (the JAX
 package's ``repro.configs``, as data over the port's ModelConfig).
 
-Every entry cites its source. The port runs the dense, MoE, VLM and audio
-ones (granite-3-2b, qwen3-moe-235b-a22b at depth 1, qwen2-vl-2b and
-musicgen-large at full width on the card in ``chip_smoke.py``; reduced
-variants on the CPU in the tests); xlstm-1.3b and zamba2-7b raise.
+Every entry cites its source. The port runs every family: on the card in
+``chip_smoke.py`` granite-3-2b, qwen2-vl-2b, musicgen-large and
+xlstm-1.3b at full width and depth, qwen3-moe-235b-a22b at depth 1 and
+zamba2-7b at depth 39 (full width); reduced variants on the CPU in the
+tests.
 """
 from __future__ import annotations
 

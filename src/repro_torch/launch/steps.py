@@ -158,14 +158,23 @@ def yogi_apply(params, state, delta, lr=0.02, beta1=0.9, beta2=0.99, tau=1e-3):
 # ---------------------------------------------------------------------------
 def _per_layer(tree, cfg) -> Any:
     """``tree`` (params or a same-shaped state) with every block stack
-    (``blocks``; llama4's ``dense_blocks`` and ``moe_blocks``) split into a
-    list of per-layer dicts of views."""
+    (``blocks``; llama4's ``dense_blocks`` and ``moe_blocks``; zamba2's and
+    xlstm's nested stacks) split into (nested) lists of per-layer dicts of
+    views; zamba2's unstacked shared block stays whole."""
     out = dict(tree)
     bb = dict(tree["backbone"])
-    for name, n in transformer.block_stacks(cfg).items():
-        bb[name] = transformer.layers(bb[name], n)
+    for name, dims in transformer.block_stacks(cfg).items():
+        bb[name] = transformer.layers(bb[name], dims)
     out["backbone"] = bb
     return out
+
+
+def _restacked(split):
+    """The inverse of ``transformer.layers``: (nested) lists of per-layer
+    trees stacked back into one tree of (n, ...) leaves."""
+    if not isinstance(split, list):
+        return split
+    return tree_map(lambda *g: torch.stack(g), *[_restacked(e) for e in split])
 
 
 def _flat(tree, cfg) -> List[torch.Tensor]:
@@ -194,13 +203,15 @@ def _grads(loss_of: Callable, params, cfg):
 
 def loss_and_grads(model: Model, params, batch, window: int = -1):
     """``jax.value_and_grad(model.loss, has_aux=True)``: ((loss, metrics),
-    grads), the grads in ``params``' layout (block leaves stacked)."""
+    grads), the grads in ``params``' layout (block leaves stacked, nested
+    stacks nested). A block applied more than once (zamba2's shared block)
+    gets the sum over its applications."""
     cfg = model.cfg
     loss, aux, _, grads = _grads(lambda t: model.loss(t, batch, window), params, cfg)
     it = iter(grads)
     split = tree_map(lambda a: next(it), _per_layer(params, cfg))
     for name in transformer.block_stacks(cfg):
-        split["backbone"][name] = tree_map(lambda *g: torch.stack(g), *split["backbone"][name])
+        split["backbone"][name] = _restacked(split["backbone"][name])
     return (loss, {k: v.detach() for k, v in aux.items()}), split
 
 

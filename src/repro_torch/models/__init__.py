@@ -1,6 +1,6 @@
 """Model zoo of the port: the dense, MoE (``moe``), VLM and audio
-transformers (``common``, ``transformer``, ``zoo``); the SSM and hybrid
-families (``repro.models.ssm``) are a later port slice."""
+transformers (``common``, ``transformer``, ``zoo``), and the SSM (xLSTM)
+and hybrid (Mamba-2 + shared attention) families (``ssm``)."""
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.zoo import Model, build_model
 

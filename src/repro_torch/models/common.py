@@ -31,8 +31,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as rnd
 
-LATER = "later port slice"
-
 
 # ---------------------------------------------------------------------------
 # Config

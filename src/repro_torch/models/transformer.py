@@ -1,7 +1,8 @@
-"""Full-model assembly (port of ``repro.models.transformer``): the dense,
-MoE, VLM and audio families.
+"""Full-model assembly (port of ``repro.models.transformer``): every
+family of the zoo (dense, MoE, VLM, audio, the SSM xLSTM and the hybrid
+Mamba-2 + shared attention).
 
-Layer parameters are stacked (leading axis = depth), as in the JAX
+Layer parameters are stacked (leading axes = depth), as in the JAX
 package. Each layer's weights are drawn from its own key of
 ``split(key, n_layers)`` (the JAX package vmaps the per-layer init over
 those keys, which draws the same numbers) one layer at a time, so no draw
@@ -13,31 +14,35 @@ The training forward loops over the layers, each under activation
 checkpointing (the JAX package's ``lax.scan`` of ``jax.checkpoint`` with
 ``remat_policy="full"``); the cross-entropy head runs in token chunks of
 ``ce_chunk``, each checkpointed, so the (B, S, V) logits never exist at
-once. ``params["backbone"]["blocks"]`` is a dict of stacked (L, ...)
-leaves, or a list of L per-layer dicts: the training step passes the
-latter, per-layer leaf tensors, so that autograd hands back each layer's
-gradient alone instead of a full (L, ...) tensor per layer. llama4's
-alternation keeps two stacks, ``dense_blocks`` and ``moe_blocks`` (n_layers
-// 2 each), applied as (dense, MoE) pairs; ``block_stacks(cfg)`` names a
-config's stacks and their depths.
+once. ``params["backbone"]`` holds the block stacks that
+``block_stacks(cfg)`` names, each with its layer axes: ``blocks`` (L,);
+llama4's alternation ``dense_blocks`` and ``moe_blocks`` (L/2,), applied as
+(dense, MoE) pairs; zamba2's ``mamba`` (n_super, attn_every) superblocks,
+each followed by the one ``shared_attn`` block (unstacked, its weights
+reused by every application), then ``mamba_tail`` (the leftover layers);
+xlstm's ``mlstm`` (n_groups, g - 1) and ``slstm`` (n_groups,), a group
+being g - 1 mLSTM layers then one sLSTM layer. A stack is a dict of
+stacked leaves, or (as the training step passes it) nested lists of
+per-layer dicts, so that autograd hands back each layer's gradient alone
+instead of a full stacked tensor per layer.
 
 The VLM prepends its projected image patch embeddings (early fusion) and
 rotates with M-RoPE; the audio family embeds and predicts ``n_codebooks``
 parallel token streams (tokens (B, nc, S), logits (B, S, nc, V)). The SSM
-and hybrid families (``repro.models.ssm``) are a later port slice and
-raise ``NotImplementedError``.
+and hybrid blocks are ``models/ssm.py``; their decode caches carry the
+recurrent states (and one KV cache per application of the shared block).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import random as rnd
-from repro_torch.models import moe
+from repro_torch.models import moe, ssm
 from repro_torch.models.common import (
-    LATER,
     ModelConfig,
     _checkpointed,
     _dot,
@@ -121,14 +126,27 @@ def _stacked_init(key, n: int, init_fn: Callable, out: Optional[Params] = None) 
     return out
 
 
-def block_stacks(cfg: ModelConfig) -> Dict[str, int]:
-    """The backbone's layer stacks and their depths, in the order a forward
-    pass applies them (llama4: a dense then a MoE layer per pair)."""
-    if cfg.family in ("dense", "vlm", "audio") or (cfg.family == "moe" and cfg.moe_interleave == 1):
-        return {"blocks": cfg.n_layers}
-    if cfg.family == "moe":
-        return {"dense_blocks": cfg.n_layers // 2, "moe_blocks": cfg.n_layers // 2}
-    raise NotImplementedError(f"{cfg.family} backbone: {LATER}")
+def block_stacks(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The backbone's layer stacks and their layer axes: (L,) for a plain
+    stack, (n_super, attn_every) and (n_groups, g - 1) for zamba2's and
+    xlstm's nested ones, () for zamba2's one shared block."""
+    f = cfg.family
+    if f in ("dense", "vlm", "audio") or (f == "moe" and cfg.moe_interleave == 1):
+        return {"blocks": (cfg.n_layers,)}
+    if f == "moe":
+        return {"dense_blocks": (cfg.n_layers // 2,), "moe_blocks": (cfg.n_layers // 2,)}
+    if f == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        leftover = cfg.n_layers - n_super * cfg.attn_every
+        stacks = {"mamba": (n_super, cfg.attn_every)}
+        if leftover:
+            stacks["mamba_tail"] = (leftover,)
+        stacks["shared_attn"] = ()
+        return stacks
+    if f == "ssm":
+        g = cfg.slstm_every
+        return {"mlstm": (cfg.n_layers // g, g - 1), "slstm": (cfg.n_layers // g,)}
+    raise ValueError(f"unknown family {f}")
 
 
 def _is_moe(cfg: ModelConfig, stack: str) -> bool:
@@ -136,14 +154,44 @@ def _is_moe(cfg: ModelConfig, stack: str) -> bool:
     return stack == "moe_blocks" or (stack == "blocks" and cfg.family == "moe")
 
 
+_SSM_INIT = {"mamba": ssm.mamba2_init, "mamba_tail": ssm.mamba2_init, "mlstm": ssm.mlstm_init,
+             "slstm": ssm.slstm_init}
+
+
+def _layer_init(cfg: ModelConfig, stack: str) -> Callable:
+    """The per-layer init of the block stack ``stack``."""
+    if stack in _SSM_INIT:
+        return _SSM_INIT[stack]
+    return moe.moe_block_init if _is_moe(cfg, stack) else block_init
+
+
+# the stacks' keys of split(key, 8), as the JAX package draws them (the rest
+# draw from keys[0])
+_STACK_KEY = {"moe_blocks": 1, "mamba_tail": 1, "slstm": 1, "shared_attn": 2}
+
+
 def backbone_init(key, cfg: ModelConfig, out: Optional[Params] = None) -> Params:
+    """A nested stack's layers are drawn flat, from ``split(key, n)`` over
+    all its n layers, and viewed nested, as the JAX package reshapes them."""
     keys = rnd.split(key, 8)
     out = out or {}
-    # blocks and dense_blocks draw from keys[0], moe_blocks from keys[1]
-    return {name: _stacked_init(keys[int(name == "moe_blocks")], n,
-                                lambda k, f=moe.moe_block_init if _is_moe(cfg, name) else block_init: f(k, cfg),
-                                out.get(name))
-            for name, n in block_stacks(cfg).items()}
+    p: Params = {}
+    for name, dims in block_stacks(cfg).items():
+        k = keys[_STACK_KEY.get(name, 0)]
+        init = lambda k, f=_layer_init(cfg, name): f(k, cfg)
+        if not dims:  # zamba2's shared block: one copy
+            p[name] = init(k)
+            if name in out:
+                _write(out[name], p[name])
+                p[name] = out[name]
+            continue
+        n = math.prod(dims)
+        flat = (tree_map(lambda a: a.view((n,) + tuple(a.shape[len(dims):])), out[name])
+                if name in out else None)
+        flat = _stacked_init(k, n, init, flat)
+        p[name] = out[name] if name in out else tree_map(
+            lambda a: a.view(tuple(dims) + tuple(a.shape[1:])), flat)
+    return p
 
 
 def model_init(key, cfg: ModelConfig, out: Optional[Params] = None) -> Params:
@@ -176,26 +224,49 @@ def model_init(key, cfg: ModelConfig, out: Optional[Params] = None) -> Params:
 # ---------------------------------------------------------------------------
 # Forward (training) pass
 # ---------------------------------------------------------------------------
-def layers(blocks, n: int):
-    """The per-layer param dicts of a block stack: ``blocks`` as given when
-    it is already a list, else layer i's views ``a[i]`` of every leaf."""
-    if isinstance(blocks, list):
+def layers(blocks, dims: Tuple[int, ...]):
+    """The per-layer param dicts of a block stack with layer axes ``dims``:
+    ``blocks`` as given when it is already a list (or unstacked, dims ()),
+    else layer i's views ``a[i]`` of every leaf, as nested lists for a
+    nested stack."""
+    if isinstance(blocks, list) or not dims:
         return blocks
-    return [tree_map(lambda a, i=i: a[i], blocks) for i in range(n)]
+    return [layers(tree_map(lambda a, i=i: a[i], blocks), dims[1:]) for i in range(dims[0])]
 
 
 def backbone_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
     """x: (B, S, D) -> (B, S, D), aux dict. One layer (llama4: one dense /
     MoE pair) at a time, each under activation checkpointing (remat
-    "full"). The MoE layers' lb and z losses are summed and divided by
-    n_layers (llama4: by the number of pairs)."""
+    "full"), except the sLSTM layers: their activations are small, and a
+    recompute would run their time loop (launch-bound) once more. The MoE
+    layers' lb and z losses are summed and divided by n_layers (llama4: by
+    the number of pairs); the other families' are zero."""
     stacks = block_stacks(cfg)
+    per = {name: layers(params[name], dims) for name, dims in stacks.items()}
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = {"lb_loss": lb, "z_loss": zl}
+    if cfg.family == "hybrid":
+        def mamba(p, x):
+            return ssm.mamba2_apply(p, cfg, x)
+
+        for sup in per["mamba"]:
+            for p in sup:
+                x = _checkpointed(mamba, p, x)
+            x = _checkpointed(lambda p, x: block_apply(p, cfg, x, positions, window), per["shared_attn"], x)
+        for p in per.get("mamba_tail", []):
+            x = _checkpointed(mamba, p, x)
+        return x, zero
+    if cfg.family == "ssm":
+        for group, p_s in zip(per["mlstm"], per["slstm"]):
+            for p in group:
+                x = _checkpointed(lambda p, x: ssm.mlstm_apply(p, cfg, x), p, x)
+            x = ssm.slstm_apply(p_s, cfg, x)
+        return x, zero
     if cfg.family != "moe":
-        for p in layers(params["blocks"], cfg.n_layers):
+        for p in per["blocks"]:
             x = _checkpointed(lambda p, x: block_apply(p, cfg, x, positions, window), p, x)
-        return x, {"lb_loss": lb, "z_loss": zl}
+        return x, zero
 
     def layer(p, x):
         if "moe_blocks" in stacks:
@@ -203,11 +274,11 @@ def backbone_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
         x, a = moe.moe_block_apply(p[-1], cfg, x, positions, window)
         return x, a["lb_loss"], a["z_loss"]
 
-    per = list(zip(*(layers(params[name], n) for name, n in stacks.items())))
-    for p in per:
+    pairs = list(zip(*per.values()))
+    for p in pairs:
         x, l_i, z_i = _checkpointed(layer, list(p), x)
         lb, zl = lb + l_i, zl + z_i
-    return x, {"lb_loss": lb / len(per), "z_loss": zl / len(per)}
+    return x, {"lb_loss": lb / len(pairs), "z_loss": zl / len(pairs)}
 
 
 def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], window: int = -1):
@@ -294,31 +365,80 @@ def loss_fn(params, cfg: ModelConfig, batch, window: int = -1):
 # ---------------------------------------------------------------------------
 # Decode (serving) pass: one new token against the cached state
 # ---------------------------------------------------------------------------
+def _stacked_cache(dims: Tuple[int, ...], one: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One layer's cache repeated over the layer axes ``dims``."""
+    return {k: a.expand(tuple(dims) + tuple(a.shape)).clone() for k, a in one.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device=None):
-    """Per-layer caches stacked like the block stacks: k, v (L, B, C, Hkv,
-    hd), index (L,) under each stack's name."""
+    """Per-layer caches stacked like the block stacks, under each stack's
+    name: k, v (L, B, C, Hkv, hd) and index (L,) for attention layers.
+    zamba2: the Mamba-2 conv and SSM states of ``mamba`` (n_super,
+    attn_every, ...) and ``mamba_tail``, and ``attn``, one KV cache per
+    application of the shared block (n_super of them for one set of
+    weights). xlstm: the mLSTM's C and n, the sLSTM's c, n, m and h."""
+    stacks = block_stacks(cfg)
+    if cfg.family == "hybrid":
+        cache = {"mamba": _stacked_cache(stacks["mamba"], ssm.mamba2_cache_init(cfg, batch, dtype, device)),
+                 "attn": _stacked_cache(stacks["mamba"][:1],
+                                        attention_cache_init(cfg, batch, max_seq, dtype, device))}
+        if "mamba_tail" in stacks:
+            cache["mamba_tail"] = _stacked_cache(stacks["mamba_tail"],
+                                                 ssm.mamba2_cache_init(cfg, batch, dtype, device))
+        return cache
+    if cfg.family == "ssm":
+        return {"mlstm": _stacked_cache(stacks["mlstm"], ssm.mlstm_cache_init(cfg, batch, dtype, device)),
+                "slstm": _stacked_cache(stacks["slstm"], ssm.slstm_state_init(cfg, batch, device))}
     one = attention_cache_init(cfg, batch, max_seq, dtype, device)
-    return {name: {k: torch.zeros((n,) + tuple(a.shape), dtype=a.dtype, device=a.device)
-                   for k, a in one.items()}
-            for name, n in block_stacks(cfg).items()}
+    return {name: _stacked_cache(dims, one) for name, dims in stacks.items()}
+
+
+def _recurrent(decode, p, cfg: ModelConfig, x, cache, at):
+    """One recurrent layer's decode against the states ``cache[...][at]``,
+    which the new states overwrite in place."""
+    x, new = decode(p, cfg, x, {k: a[at] for k, a in cache.items()})
+    for k, a in new.items():
+        cache[k][at].copy_(a)
+    return x
+
+
+def _attend(decode, p, cfg: ModelConfig, x, c, i, window, index):
+    """An attention layer's decode against layer ``i`` of the stacked KV
+    cache ``c`` (K/V written in place); its new index goes into ``index``."""
+    x, ci = decode(p, cfg, x, {"k": c["k"][i], "v": c["v"][i], "index": c["index"][i]}, window)
+    index.append(ci["index"])
+    return x
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, window: int = -1):
     """tokens: (B, 1) (audio: (B, nc, 1)) -> (logits (B, 1, V) (audio:
-    (B, 1, nc, V)), cache). The cache's K/V are written in place; the
-    returned cache holds them and the new indices."""
+    (B, 1, nc, V)), cache). The cache's K/V and recurrent states are
+    written in place; the returned cache holds them and the new indices."""
     x = embed_tokens(params, cfg, tokens)
     bb = params["backbone"]
     stacks = block_stacks(cfg)
-    new_index = {name: [] for name in stacks}
-    per = zip(*(layers(bb[name], n) for name, n in stacks.items()))
-    for i, ps in enumerate(per):
-        for name, p in zip(stacks, ps):  # llama4: the pair's dense layer, then its MoE layer
-            c = cache[name]
-            decode = moe.moe_block_decode if _is_moe(cfg, name) else block_decode
-            x, ci = decode(p, cfg, x, {"k": c["k"][i], "v": c["v"][i], "index": c["index"][i]}, window)
-            new_index[name].append(ci["index"])
+    per = {name: layers(bb[name], dims) for name, dims in stacks.items()}
+    if cfg.family == "hybrid":
+        index = []
+        for s, sup in enumerate(per["mamba"]):
+            for j, p in enumerate(sup):
+                x = _recurrent(ssm.mamba2_decode, p, cfg, x, cache["mamba"], (s, j))
+            x = _attend(block_decode, per["shared_attn"], cfg, x, cache["attn"], s, window, index)
+        for i, p in enumerate(per.get("mamba_tail", [])):
+            x = _recurrent(ssm.mamba2_decode, p, cfg, x, cache["mamba_tail"], i)
+        new_cache = dict(cache, attn=dict(cache["attn"], index=torch.stack(index)))
+    elif cfg.family == "ssm":
+        for g, (group, p_s) in enumerate(zip(per["mlstm"], per["slstm"])):
+            for j, p in enumerate(group):
+                x = _recurrent(ssm.mlstm_decode, p, cfg, x, cache["mlstm"], (g, j))
+            x = _recurrent(ssm.slstm_decode, p_s, cfg, x, cache["slstm"], g)
+        new_cache = cache
+    else:
+        index = {name: [] for name in stacks}
+        for i, ps in enumerate(zip(*per.values())):
+            for name, p in zip(stacks, ps):  # llama4: the pair's dense layer, then its MoE layer
+                decode = moe.moe_block_decode if _is_moe(cfg, name) else block_decode
+                x = _attend(decode, p, cfg, x, cache[name], i, window, index[name])
+        new_cache = {name: dict(cache[name], index=torch.stack(index[name])) for name in stacks}
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = lm_logits(params, cfg, x)
-    return logits, {name: {"k": cache[name]["k"], "v": cache[name]["v"],
-                           "index": torch.stack(new_index[name])} for name in stacks}
+    return lm_logits(params, cfg, x), new_cache

@@ -33,7 +33,6 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.common import (
-    LATER,
     _qkv,
     attention_out,
     default_positions,

@@ -20,7 +20,8 @@ FORBIDDEN = re.compile(
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import sys, repro_torch, repro_torch.fl, repro_torch.core, repro_torch.kernels.ops\n"
-        "import repro_torch.models, repro_torch.models.moe, repro_torch.configs, repro_torch.serve\n"
+        "import repro_torch.models, repro_torch.models.moe, repro_torch.models.ssm, repro_torch.configs\n"
+        "import repro_torch.serve\n"
         "import repro_torch.configs.granite_3_2b, repro_torch.configs.shapes\n"
         "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.checkpoint.npz\n"
         "import repro_torch.scale, repro_torch.data.plane, repro_torch.fl.baselines\n"
@@ -125,22 +126,20 @@ def test_later_model_families_and_sliding_window_decode_raise():
         if cfg.family == "dense":
             continue
         families.add(cfg.family)
-        if cfg.family in ("ssm", "hybrid"):  # models/ssm.py: a later slice
-            with pytest.raises(NotImplementedError):
-                build_model(small).init(rnd.key(0), device="cpu")
-            with pytest.raises(NotImplementedError):
-                build_model(cfg).param_count()
-            with pytest.raises(NotImplementedError):
-                transformer.backbone_apply({}, small, torch.zeros(1, 2, small.d_model), None)
-        else:  # the MoE, VLM and audio families init (the full config on meta)
-            params = build_model(small).init(rnd.key(0), device="cpu")
-            assert params["embed"].device.type == "cpu" and build_model(cfg).param_count() > 0
-            ported.add(cfg.family)
+        # every family inits (the full config on meta), the SSM and hybrid
+        # ones too since models/ssm.py was ported
+        params = build_model(small).init(rnd.key(0), device="cpu")
+        assert params["embed"].device.type == "cpu" and build_model(cfg).param_count() > 0
+        assert sorted(params["backbone"]) == sorted(transformer.block_stacks(small))
+        ported.add(cfg.family)
         # paged decode stays dense-only, as the JAX package asserts
         with pytest.raises(NotImplementedError):
             CohortDecoder(build_model(small), dict, list, device="cpu")
     assert families == {"moe", "ssm", "hybrid", "vlm", "audio"}
-    assert ported == {"moe", "vlm", "audio"}
+    assert ported == {"moe", "vlm", "audio", "ssm", "hybrid"}
+    # a family the zoo does not know raises, as the JAX package's does
+    with pytest.raises(ValueError, match="unknown family"):
+        transformer.block_stacks(small.replace(family="rnn"))
     # a dense config with a sliding window (h2o-danube-3-4b) inits, but paged
     # decode refuses it, as the JAX package does
     danube = reduce_config(all_configs()["h2o_danube_3_4b"])
