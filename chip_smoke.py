@@ -12,6 +12,7 @@
     python3 chip_smoke.py --eval-baselines  # build + phase 4a and 4's runs + phase 12 alone
     python3 chip_smoke.py --families      # build + phase 13 alone
     python3 chip_smoke.py --ssm           # build + phase 14 alone
+    python3 chip_smoke.py --placement     # build + a warm-up run + phase 15 alone
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -108,6 +109,20 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      (c) zamba2-7b at full width, depth 39 of 81: 2 central steps on 4 x
      512 tokens, a prefill and 8 served tokens; (d) every segment call
      shape of the phase held against the plain version, the largest timed.
+ 15. cohort placement and elastic checkpoints, S logical shards on card 0
+     (plain versions raise on CUDA tensors; every path's launches counted
+     from 0): (a) tests/test_cohort_sharding.py's C = 32 scenario, 3 rounds
+     at 8 shards against one device (equal leaves, params at 1e-5, one
+     dispatch a round, no dropped rows) and a spawn across blocks after the
+     first step; (b) phase 4's run at 4 shards, at the full row width
+     against one device (equal partitions) and at the automatic width
+     (dropped rows, s/round); (c) benchmarks/elastic_restore.py's scenario,
+     a save/load every 5 of 30 rounds in both overlap modes (bit-equal;
+     save, load, overhead), the remesh 2 -> 4 and 2 -> 1 (discrete state
+     equal, params printed bit-equal or at rtol 1e-4 / atol 1e-5), a CPU
+     checkpoint continued on the card, and whether one segment's sum keeps
+     its bits at other offsets; then every call shape of the phase held
+     against the plain version.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -343,7 +358,7 @@ SMALL_AUXO = dict(d_sketch=64, cluster_k=2, max_cohorts=2, clustering_start_frac
                   partition_start_frac=0.1, min_members=8)
 
 
-def run_main(torch, rounds: int, **fl_kw):
+def run_main(torch, rounds: int, devices=None, **fl_kw):
     from repro_torch.data import make_population
     from repro_torch.fl import AuxoConfig, FLConfig, MLPTask, run_auxo
 
@@ -353,7 +368,7 @@ def run_main(torch, rounds: int, **fl_kw):
                   eval_every=max(2, rounds // 20), use_availability=True, seed=1, **fl_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng, hist = run_auxo(task, pop, fl, AuxoConfig(**AUXO), device="cuda")
+    eng, hist = run_auxo(task, pop, fl, AuxoConfig(**AUXO), device="cuda", devices=devices)
     torch.cuda.synchronize()
     return eng, hist, time.perf_counter() - t0
 
@@ -2738,6 +2753,437 @@ def ssm_only(torch) -> int:
     return 0
 
 
+# ------------------------------------------- phase 15: cohort placement
+# tests/test_cohort_sharding.py's C = 32 scenario (800 clients, 128 a round,
+# 32 forced leaves): at 8 shards, capacity 64, 8 slots and 40 rows a shard
+C32_POP = dict(n_clients=800, n_groups=8, group_sep=0.0, dirichlet=2.0, label_conflict=0.6, seed=13)
+C32_FL = dict(rounds=4, participants_per_round=128, use_availability=False, seed=13)
+C32_AUXO = dict(d_sketch=32, cluster_k=2, max_cohorts=32, clustering_start_frac=0.0,
+                partition_start_frac=2.0, partition_end_frac=2.0)
+C32_SHARDS, C32_ROUNDS = 8, 3
+MAIN_SHARDS = 4  # 15b: phase 4's run at 4 shards
+# benchmarks/elastic_restore.py's scenario (tests/conftest.py elastic_scenario):
+# 300 clients, 60 a round (75 rows), max_cohorts 3, a save/load every 5 of 30 rounds
+ELASTIC_POP = MODES_POP
+ELASTIC_AUXO = MODES_AUXO
+ELASTIC_ROUNDS, ELASTIC_EVERY, ELASTIC_WIDTH = 30, 5, 75
+REMESH_K, REMESH_R = 8, 24  # tests/test_elastic_restore.py's remesh case
+CROSS_K, CROSS_R = 6, 12  # CPU checkpoint -> card: the 12-round whole-run tolerance
+
+
+def force_leaves(eng, n_leaves: int):
+    """benchmarks/round_latency.py's force_leaves, for the port: grow the
+    tree to ``n_leaves`` by unconditional binary partitions."""
+    from repro_torch.core.clustering import OnlineClustering
+    from repro_torch.core.coordinator import CohortStats, PartitionEvent
+
+    co = eng.coordinator
+    while len(co.tree.leaves()) < n_leaves:
+        leaf = co.tree.leaves()[0]
+        children = co.tree.partition(leaf, co.cluster_k)
+        for ch in children:
+            co.clusterers[ch] = OnlineClustering(co.cluster_k, co.d_sketch,
+                                                 seed=co.seed + hash(ch) % 10_000, device=co.device)
+            co.stats[ch] = CohortStats()
+        event = PartitionEvent(parent=leaf, children=children, round_idx=0,
+                               cluster_to_child={i: ch for i, ch in enumerate(children)})
+        eng.pipeline.bank.spawn_children(event.parent, event.children)
+        eng.pipeline.table.seed_children(eng.pipeline.bank.slot_of[event.parent],
+                                         [eng.pipeline.bank.slot_of[ch] for ch in event.children])
+        co.partitions.append(event)
+
+
+def placement_engine(pop, fl, auxo, shards: int = 0, device: str = "cuda", **fl_kw):
+    """An engine whose ``shards`` logical cohort shards all sit on card 0
+    (or on the CPU)."""
+    from repro_torch.fl import AuxoConfig, AuxoEngine, FLConfig, MLPTask
+
+    devices = [f"{device}:0"] * shards if shards > 1 and device == "cuda" else None
+    return AuxoEngine(MLPTask(dim=pop.dim, n_classes=pop.n_classes), pop,
+                      FLConfig(**{**fl, **fl_kw}, cohort_shards=shards), AuxoConfig(**auxo),
+                      device=device, devices=devices)
+
+
+def elastic_engine(pop, rounds: int, overlap: int = 0, shards: int = 0, device: str = "cuda"):
+    fl = dict(MODES_FL, rounds=rounds, eval_every=rounds - 1, round_overlap=overlap,
+              rows_per_shard=ELASTIC_WIDTH if shards > 1 else 0)
+    return placement_engine(pop, fl, ELASTIC_AUXO, shards, device)
+
+
+def run_digest(torch, eng, eval_round=None) -> dict:
+    """tests/test_torch_run_state.py's digest on host numpy: every cohort's
+    params, optimizer state and clocks by cohort id, the tables in sorted
+    cohort-id column order, fingerprints, the global mean, the leaves, and
+    with ``eval_round`` the per-client evaluation."""
+    import numpy as np
+
+    from repro_torch.utils.tree import leaves
+
+    bank = eng.pipeline.bank
+    out = {}
+    for cid, slot in bank.slot_of.items():
+        out[f"params:{cid}"] = np.concatenate(
+            [v.cpu().numpy().ravel() for v in leaves(bank.params_of(cid))])
+        out[f"opt:{cid}"] = np.concatenate(
+            [v.cpu().numpy().ravel() for v in leaves(bank.opt_state_of(cid))])
+        out[f"clock:{cid}"] = np.asarray([bank.clock[slot], float(bank.rounds[slot])])
+    t = eng.pipeline.table
+    cols = [bank.slot_of[c] for c in sorted(bank.slot_of)]
+    out["table:reward"] = t.reward[:, cols]
+    out["table:known"] = t.known[:, cols]
+    out["table:cluster"] = t.cluster_idx[:, cols]
+    out["fp"] = np.concatenate([eng.fingerprint.ravel(), eng.fp_seen, eng.neg_streak])
+    out["mu"] = np.asarray(eng.global_mu)
+    out["leaves"] = np.frombuffer(",".join(eng.coordinator.tree.leaves()).encode(), np.uint8)
+    if eval_round is not None:
+        out["eval"] = np.asarray(eng.evaluate(eval_round)["per_client"])
+    return out
+
+
+def digest_gap(da, db) -> tuple:
+    """(keys that differ in bits, largest |difference| of the params and
+    optimizer states, keys of discrete state that differ: leaves, clocks,
+    known records and cluster indices)."""
+    import numpy as np
+
+    if set(da) != set(db):
+        return sorted(set(da) ^ set(db)), float("inf"), ["keys"]
+    diff = [k for k in sorted(da) if not np.array_equal(da[k], db[k])]
+    gap = max([float(np.max(np.abs(da[k] - db[k]))) for k in diff
+               if k.startswith(("params:", "opt:"))] + [0.0])
+    bad = [k for k in diff if k.startswith(("leaves", "clock:", "table:known", "table:cluster"))]
+    return diff, gap, bad
+
+
+def params_close(torch, ea, eb, rtol, atol) -> float:
+    """Largest |difference| of every cohort's params, engine to engine; raises
+    past the tolerance."""
+    gap = 0.0
+    for cid in ea.pipeline.bank.slot_of:
+        for k, v in ea.pipeline.bank.params_of(cid).items():
+            w = eb.pipeline.bank.params_of(cid)[k].to(v.device)
+            if not torch.allclose(w, v, rtol=rtol, atol=atol):
+                raise AssertionError(f"{cid}/{k} differs past rtol {rtol}, atol {atol}")
+            gap = max(gap, (w - v).abs().max().item())
+    return gap
+
+
+def preempted_run(torch, pop, overlap: int, tmp: str):
+    """benchmarks/elastic_restore.py: save, drop and load the engine every
+    ELASTIC_EVERY rounds; returns (engine, [save s], [load s], wall s)."""
+    import shutil
+
+    from repro_torch.checkpoint import load_run, save_run
+
+    eng = elastic_engine(pop, ELASTIC_ROUNDS, overlap)
+    saves, loads = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(ELASTIC_ROUNDS):
+        eng.step(r)
+        if (r + 1) % ELASTIC_EVERY == 0 and r + 1 < ELASTIC_ROUNDS:
+            d = os.path.join(tmp, f"o{overlap}r{r + 1}")
+            t1 = time.perf_counter()
+            save_run(d, eng)
+            t2 = time.perf_counter()
+            del eng  # the preemption: nothing survives but the files
+            eng = load_run(d, device="cuda")
+            t3 = time.perf_counter()
+            if eng.round_cursor != r + 1:
+                raise AssertionError(f"round cursor {eng.round_cursor} after round {r + 1}")
+            saves.append(t2 - t1)
+            loads.append(t3 - t2)
+            shutil.rmtree(d)
+    eng.pipeline.flush()
+    torch.cuda.synchronize()
+    return eng, saves, loads, time.perf_counter() - t0
+
+
+def uninterrupted_run(torch, pop, overlap: int):
+    eng = elastic_engine(pop, ELASTIC_ROUNDS, overlap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(ELASTIC_ROUNDS):
+        if r and r % ELASTIC_EVERY == 0:
+            eng.pipeline.flush()  # the same drain points as the preempted run
+        eng.step(r)
+    eng.pipeline.flush()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def continuous(pop, k: int, rounds: int, shards: int = 0, device: str = "cuda"):
+    """tests/test_elastic_restore.py's comparator: flushed at round k and at the end."""
+    eng = elastic_engine(pop, rounds, 0, shards, device)
+    for r in range(rounds):
+        if r == k:
+            eng.pipeline.flush()
+        eng.step(r)
+    eng.pipeline.flush()
+    return eng
+
+
+def resumed(eng, rounds: int):
+    for r in range(eng.round_cursor, rounds):
+        eng.step(r)
+    eng.pipeline.flush()
+    return eng
+
+
+def layout_free_sums(torch, ops) -> dict:
+    """Does the segment kernel sum one segment's 25 rows to the same bits
+    wherever they sit: at row 0 or 37 of a (1, 75, D) call, in block 1 or 3
+    of a stacked (2 or 4, 75, D) call? The narrow path (D = 1, stage ②'s
+    denominators) on integer client sizes and on real values (q-FedAvg's
+    loss weights), and the wide path at the main path's D = 6922 weighted."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows, W = 25, 75
+    cases = {
+        "narrow, integer sizes": (torch.randint(20, 500, (rows, 1), generator=g, device="cuda").float(), None),
+        "narrow, real values": (torch.rand(rows, 1, generator=g, device="cuda"), None),
+        "wide, real weights": (torch.randn(rows, 6922, generator=g, device="cuda"),
+                               torch.rand(rows, generator=g, device="cuda")),
+    }
+    out = {}
+    for name, (d, w) in cases.items():
+        sums = []
+        for C, blk, off in ((1, 0, 0), (1, 0, 37), (2, 1, 11), (4, 3, 50)):
+            data = torch.zeros(C, W, d.shape[1], device="cuda")
+            ids = torch.ones(C, W, dtype=torch.int64, device="cuda")
+            wt = torch.zeros(C, W, device="cuda")
+            data[blk, off:off + rows] = d
+            ids[blk, off:off + rows] = 0
+            wt[blk, off:off + rows] = 1.0 if w is None else w
+            sums.append(ops.segment_aggregate(data, ids, 2, None if w is None else wt)[blk, 0])
+        out[name] = max((s - sums[0]).abs().max().item() for s in sums[1:])
+    return out
+
+
+def placement_phase(torch, np, ops, ref, cs, sa) -> dict:
+    """Phase 15: the sharded CohortBank and its collective-free round (S
+    logical shards on card 0) and whole-run checkpoints with remesh. Plain
+    versions raise on CUDA tensors throughout; every path's launches are
+    counted."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import load_run, save_run
+    from repro_torch.data import make_population
+
+    counts = Launches(cs, sa)
+    shapes = {"cosine_similarity": {}, "segment_aggregate": {}}
+    undo = [
+        record(cs, "cosine_similarity",
+               lambda x, c, eps=1e-8: (tuple(x.shape), tuple(c.shape), x.dtype),
+               shapes["cosine_similarity"]),
+        record(sa, "segment_aggregate",
+               lambda d, i, k, w=None: (tuple(d.shape), int(k), d.dtype, w is not None),
+               shapes["segment_aggregate"]),
+        forbid_cuda_in_plain(torch, ref),
+    ]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="placement-", dir=os.path.join(ROOT, "build"))
+    secs = {}
+    out = {}
+    try:
+        # ------------------------------------ 15a: 8 shards against one device
+        t15 = time.perf_counter()
+        pop = make_population(**C32_POP)
+        runs = {}
+        for shards in (0, C32_SHARDS):
+            eng = placement_engine(pop, C32_FL, C32_AUXO, shards)
+            force_leaves(eng, 32)
+            with counts(f"15a C32 S={max(1, shards)}"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for r in range(C32_ROUNDS):
+                    eng.step(r)
+                torch.cuda.synchronize()
+            runs[shards] = (eng, (time.perf_counter() - t0) / C32_ROUNDS)
+        (single, s_single), (sharded, s_sharded) = runs[0], runs[C32_SHARDS]
+        p = sharded.pipeline
+        if single.coordinator.tree.leaves() != sharded.coordinator.tree.leaves():
+            raise AssertionError("15a: leaves differ between 8 shards and one device")
+        if p.exec_dispatches != C32_ROUNDS or p.dropped_rows != 0:
+            raise AssertionError(f"15a: dispatches {p.exec_dispatches}, dropped {p.dropped_rows}")
+        gap = params_close(torch, single, sharded, 1e-5, 1e-5)
+        same = not digest_gap(run_digest(torch, single), run_digest(torch, sharded))[0]
+        print(f"[placement] 15a C=32 (800 clients, 128 a round, 32 forced leaves), {C32_ROUNDS} "
+              f"rounds at {C32_SHARDS} logical shards on one card (capacity {p.bank.capacity}, "
+              f"{p.bank.slots_per_shard} slots and {p.shard_width} rows a shard, "
+              f"{len(p.bank.groups)} device group) vs one device: equal leaves; params max |diff| "
+              f"{gap:.3e} (rtol 1e-5, atol 1e-5), bit-equal {same}; dispatches "
+              f"{p.exec_dispatches}, dropped rows {p.dropped_rows}; s/round {s_sharded:.4f} "
+              f"sharded vs {s_single:.4f} one device", flush=True)
+        width = p.width
+        del runs, single, sharded, p
+        # the reference's probe: a partition after the first step, children
+        # in other shard blocks. One leaf takes the whole round budget, so
+        # the blocks get the full width (no drops) to match one device.
+        probes = {}
+        for shards in (0, C32_SHARDS):
+            eng = placement_engine(pop, C32_FL, C32_AUXO, shards,
+                                   rows_per_shard=width if shards else 0)
+            with counts(f"15a probe S={max(1, shards)}"):
+                eng.step(0)
+                force_leaves(eng, 2)
+                for r in (1, 2):
+                    eng.step(r)
+            probes[shards] = eng
+        bank = probes[C32_SHARDS].pipeline.bank
+        kid_shards = sorted(bank.shard_of(bank.slot_of[c]) for c in ("0.0", "0.1"))
+        if kid_shards == [0, 0] or probes[C32_SHARDS].pipeline.exec_dispatches != 3:
+            raise AssertionError(f"15a probe: children in shards {kid_shards}")
+        gap = params_close(torch, probes[0], probes[C32_SHARDS], 1e-5, 1e-5)
+        print(f"[placement] 15a spawn after the first step ({C32_SHARDS} shards of "
+              f"{width} rows): children in shards {kid_shards}, 2 more rounds; params vs one "
+              f"device max |diff| {gap:.3e}", flush=True)
+        del probes
+        secs["15a"] = time.perf_counter() - t15
+
+        # ------------------------------ 15b: the main path at 4 shards
+        t15 = time.perf_counter()
+        with counts("15b main S=1"):
+            base, hist, s1 = run_main(torch, ROUNDS)
+        full_rows = base.pipeline.width
+        with counts(f"15b main S={MAIN_SHARDS} rows {full_rows}"):
+            full, hist_f, s_full = run_main(torch, ROUNDS, devices=["cuda:0"] * MAIN_SHARDS,
+                                            cohort_shards=MAIN_SHARDS, rows_per_shard=full_rows)
+        pb, pf = bank_digest(base)[0], bank_digest(full)[0]
+        if pb != pf or base.coordinator.tree.leaves() != full.coordinator.tree.leaves():
+            raise AssertionError(f"15b: partitions {pf} at {MAIN_SHARDS} shards vs {pb}")
+        diff, gap, _ = digest_gap(run_digest(torch, base), run_digest(torch, full))
+        with counts(f"15b main S={MAIN_SHARDS} auto"):
+            auto, hist_a, s_auto = run_main(torch, ROUNDS, devices=["cuda:0"] * MAIN_SHARDS,
+                                            cohort_shards=MAIN_SHARDS)
+        pa = auto.pipeline
+        print(f"[placement] 15b run_auxo openimage-like, {ROUNDS} rounds: one device "
+              f"{s1 / ROUNDS:.4f} s/round; {MAIN_SHARDS} shards at the full {full_rows} rows "
+              f"{s_full / ROUNDS:.4f} s/round, equal partitions {pf} and leaves, bank "
+              f"{'bit-equal' if not diff else f'max |diff| {gap:.3e} at {len(diff)} keys'}; "
+              f"{MAIN_SHARDS} shards at the automatic {pa.shard_width} rows "
+              f"{s_auto / ROUNDS:.4f} s/round, dropped rows {pa.dropped_rows}, partitions "
+              f"{bank_digest(auto)[0]}, acc_mean {hist_a[-1]['acc_mean']:.4f} (one device "
+              f"{hist[-1]['acc_mean']:.4f})", flush=True)
+        out["main"] = dict(s_round=s1 / ROUNDS, s_round_full=s_full / ROUNDS,
+                           s_round_auto=s_auto / ROUNDS, dropped=pa.dropped_rows,
+                           bit_equal=not diff)
+        del base, full, auto
+        secs["15b"] = time.perf_counter() - t15
+
+        # ------------------------------------------- 15c: elastic runs
+        t15 = time.perf_counter()
+        epop = make_population(**ELASTIC_POP)
+        cycles = {}
+        for overlap in (0, 1):
+            with counts(f"15c uninterrupted overlap {overlap}"):
+                a, wall_a = uninterrupted_run(torch, epop, overlap)
+            with counts(f"15c preempted overlap {overlap}"):
+                b, saves, loads, wall_b = preempted_run(torch, epop, overlap, tmp)
+            diff = digest_gap(run_digest(torch, a, ELASTIC_ROUNDS - 1),
+                              run_digest(torch, b, ELASTIC_ROUNDS - 1))[0]
+            if diff:
+                raise AssertionError(f"15c overlap {overlap}: restored run differs at {diff}")
+            cycles[overlap] = dict(save_s=statistics.mean(saves), load_s=statistics.mean(loads),
+                                   overhead=(wall_b - wall_a) / wall_a, n=len(saves))
+            print(f"[placement] 15c elastic, overlap {overlap}: {ELASTIC_ROUNDS} rounds with a "
+                  f"save/load every {ELASTIC_EVERY} ({len(saves)} cycles) bit-equal to the "
+                  f"uninterrupted run (bank, tables, fingerprints, evaluation); save "
+                  f"{1e3 * cycles[overlap]['save_s']:.1f} ms, load "
+                  f"{1e3 * cycles[overlap]['load_s']:.1f} ms a cycle; wall {wall_b:.3f} s vs "
+                  f"{wall_a:.3f} s = overhead {100 * cycles[overlap]['overhead']:+.1f}%; partitions "
+                  f"{[(e.parent, e.round_idx) for e in a.coordinator.partitions]}", flush=True)
+        out["elastic"] = cycles
+        # remesh: saved at 2 shards, restored onto 4 and onto 1
+        with counts("15c remesh"):
+            cont = {s: continuous(epop, REMESH_K, REMESH_R, s) for s in (4, 0)}
+            eng = elastic_engine(epop, REMESH_R, 0, 2)
+            for r in range(REMESH_K):
+                eng.step(r)
+            d = os.path.join(tmp, "remesh")
+            save_run(d, eng)
+            moved = {s: resumed(load_run(d, cohort_shards=s, device="cuda",
+                                         devices=["cuda:0"] * s if s > 1 else None), REMESH_R)
+                     for s in (4, 1)}
+        remesh = {}
+        for s, key in ((4, 4), (1, 0)):
+            if moved[s].pipeline.bank.n_shards != s:
+                raise AssertionError(f"15c remesh: {moved[s].pipeline.bank.n_shards} shards")
+            diff, gap, bad = digest_gap(run_digest(torch, cont[key], REMESH_R - 1),
+                                        run_digest(torch, moved[s], REMESH_R - 1))
+            if bad:
+                raise AssertionError(f"15c remesh 2->{s}: discrete state differs at {bad}")
+            gap = max(gap, params_close(torch, cont[key], moved[s], 1e-4, 1e-5))
+            remesh[s] = dict(bit_equal=not diff, gap=gap)
+            print(f"[placement] 15c remesh 2->{s} (saved after round {REMESH_K}, {REMESH_R} "
+                  f"rounds): {'bit-equal' if not diff else f'differs at {len(diff)} keys, params max |diff| {gap:.3e}'}"
+                  f" against the run that lived at {s} shard(s); partitions "
+                  f"{[(e.parent, e.round_idx) for e in moved[s].coordinator.partitions]}", flush=True)
+        out["remesh"] = remesh
+        del cont, moved
+        # a checkpoint of a CPU run restored onto the card
+        with counts("15c CPU -> card"):
+            cpu = elastic_engine(epop, CROSS_R, 0, 0, device="cpu")
+            for r in range(CROSS_K):
+                cpu.step(r)
+            d = os.path.join(tmp, "cpu")
+            save_run(d, cpu)
+            card = resumed(load_run(d, device="cuda"), CROSS_R)
+            resumed(cpu, CROSS_R)
+        if (bank_digest(cpu)[0] != bank_digest(card)[0]
+                or cpu.coordinator.tree.leaves() != card.coordinator.tree.leaves()
+                or not (cpu.pipeline.table.cluster_idx == card.pipeline.table.cluster_idx).all()):
+            raise AssertionError("15c CPU -> card: partitions, leaves or assignments differ")
+        gap = params_close(torch, cpu, card, 1e-4, 1e-5)
+        print(f"[placement] 15c CPU checkpoint after round {CROSS_K} restored onto the card and "
+              f"run to round {CROSS_R}: equal partitions {bank_digest(card)[0]}, leaves and "
+              f"assignments; params vs the CPU's own continuation max |diff| {gap:.3e} "
+              f"(rtol 1e-4, atol 1e-5)", flush=True)
+        out["cpu_to_card"] = gap
+        out["layout"] = layout_free_sums(torch, ops)
+        print(f"[placement] 15c one segment's rows at other offsets and blocks, max |diff| of its "
+              f"sum (0 = the same bits): {out['layout']}", flush=True)
+        secs["15c"] = time.perf_counter() - t15
+    finally:
+        for u in undo:
+            u()
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts.check()
+    t0 = time.perf_counter()
+    worst = check_rows(torch, ops, ref, list(shapes["cosine_similarity"]),
+                       list(shapes["segment_aggregate"]))
+    secs["checks"] = time.perf_counter() - t0
+    print(f"[placement] launches by path {counts.by_path}", flush=True)
+    print(f"[placement] {len(shapes['cosine_similarity'])} cosine and "
+          f"{len(shapes['segment_aggregate'])} segment call shapes of phase 15 held against the "
+          f"plain version: max |err| {worst}; segment shapes {sorted(shapes['segment_aggregate'])}",
+          flush=True)
+    print(f"[placement] seconds {({k: round(v, 2) for k, v in secs.items()})}, phase 15 "
+          f"{sum(secs.values()):.2f} s", flush=True)
+    total = {k: sum(n[k] for n in counts.by_path.values()) for k in ROUND_KERNELS}
+    return dict(out, launches=total, by_path=counts.by_path, worst=worst, secs=secs)
+
+
+def placement_only(torch) -> int:
+    """``--placement``: build, then phase 15 alone."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import segment_aggregate as sa
+
+    card = smi()
+    print(card)
+    so = build.build()
+    print(f"[build] {so}")
+    run_main(torch, 2)  # warm-up: the first run also pays the card's and the libraries' start
+    out = placement_phase(torch, np, ops, ref, cs, sa)
+    print(json.dumps({"placement_launches": out["by_path"], "max_abs_err": out["worst"],
+                      "secs": out["secs"]}))
+    print(card)
+    return 0
+
+
 def row_json(sig, t):
     return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
@@ -2808,6 +3254,8 @@ def main(argv) -> int:
         return families_only(torch)
     if "--ssm" in argv:
         return ssm_only(torch)
+    if "--placement" in argv:
+        return placement_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -3025,6 +3473,15 @@ def main(argv) -> int:
     seg["phase14_launches"] = ssm["launches"]
     seg["phase14_largest"] = ssm["row"]
     seg["max_abs_err"] = max(seg["max_abs_err"], ssm["worst"])
+
+    # ------------------------------------------------- phase 15: placement
+    gc.collect()
+    torch.cuda.empty_cache()
+    pl = placement_phase(torch, np, ops, ref, cs, sa)
+    for r in report:
+        if r["name"] in ROUND_KERNELS:
+            r["placement_launches"] = pl["launches"][r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], pl["worst"][r["name"]])
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

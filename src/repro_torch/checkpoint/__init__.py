@@ -1,7 +1,24 @@
-"""Checkpoints of the port: flat-keyed ``.npz`` param trees, readable by
-numpy and interchangeable with the JAX package's ``save_pytree`` files.
-The population-store, data-plane and whole-run checkpoints are a later
-port slice."""
-from repro_torch.checkpoint.npz import load_pytree, save_pytree
+"""Checkpoints of the port (port of ``repro.checkpoint``): flat-keyed
+``.npz`` param trees, the chunked PopulationStore, the data-plane recipe,
+and whole runs (``save_run``/``load_run``, with elastic remesh). The files
+are the JAX package's, key for key: either package reads the other's."""
+from repro_torch.checkpoint.npz import (
+    load_data_plane,
+    load_population_store,
+    load_pytree,
+    save_data_plane,
+    save_population_store,
+    save_pytree,
+)
+from repro_torch.checkpoint.run_state import load_run, save_run
 
-__all__ = ["load_pytree", "save_pytree"]
+__all__ = [
+    "load_data_plane",
+    "load_population_store",
+    "load_pytree",
+    "load_run",
+    "save_data_plane",
+    "save_population_store",
+    "save_pytree",
+    "save_run",
+]

@@ -1,6 +1,6 @@
 """Multi-cohort FL engine: the Auxo lifecycle (paper Fig. 6), on PyTorch.
 
-Port of ``repro.fl.engine`` on one device. Per global round
+Port of ``repro.fl.engine``. Per global round
 (``fl/pipeline.py``): ① matching, ②③ local training + masked aggregation
 + server optimizer for every leaf cohort over the stacked CohortBank, ④
 clustering feedback, rewards and partitions. Wall-clock is simulated from
@@ -14,12 +14,17 @@ availability, churn through ``apply_churn`` or an attached ``churn``
 stream, ``warm_rearrivals``). ``evaluate`` serves every client from its
 serving cohort's model, and ``ftfa_eval`` fine-tunes a 1% sample of
 clients from their serving models and averages their accuracy (§7.2).
-Cohort sharding comes with a later slice.
+``cohort_shards = S > 1`` places the CohortBank and the round's rows over
+an S-shard cohort mesh (§④, ``fl/pipeline.py``); ``round_cursor`` is the
+round a resumed driver loop runs next (``checkpoint.save_run``/``load_run``).
 
 The engine runs on ``device`` (default "cuda"; constructing it without a
-device on a host without CUDA raises). ``init_params`` (a dict of numpy
-arrays) overrides the seeded init, so that a run can start from the JAX
-package's exact initial weights.
+device on a host without CUDA raises). Under sharding ``devices`` lists
+the shards' devices in order (``[torch.device("cuda:0")] * S`` puts S
+logical shards on one card); without it the shards take the first S cards,
+or all the CPU when ``device="cpu"``; the engine's own device is then shard
+0's. ``init_params`` (a dict of numpy arrays) overrides the seeded init, so
+that a run can start from the JAX package's exact initial weights.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ from repro_torch.data.availability import AvailabilityTrace, DeviceSpeeds
 from repro_torch.data.plane import DataPlane, as_plane
 from repro_torch.fl.algorithms import make_server_opt
 from repro_torch.fl.client import local_train
-from repro_torch.fl.pipeline import RoundPipeline, bank_capacity
+from repro_torch.fl.pipeline import RoundPipeline, table_capacity
+from repro_torch.launch.mesh import canonical_device
 from repro_torch.scale import (
     ClientField,
     DictProbeCache,
@@ -74,8 +80,14 @@ class FLConfig:
     # against one-round-stale tables while the card runs round r;
     # partitions flush). Requires execution="batched".
     round_overlap: int = 0
-    # cohort-parallel placement over several devices: a later slice
+    # cohort-parallel placement (§④): shard the CohortBank's slot axis and
+    # the flat row axis over a mesh of this many shards; 0/1 = one device,
+    # >1 requires execution="batched"
     cohort_shards: int = 0
+    # rows each shard owns in the round; 0 = auto (2·width/S, the balanced
+    # share with 2x skew slack). A cohort whose shard block fills trains
+    # with fewer participants that round (RoundPipeline.dropped_rows); the
+    # full width keeps single-device participant semantics.
     rows_per_shard: int = 0
     # a client id may hold at most ONE kept row per round unless set
     allow_cross_cohort_duplicates: bool = False
@@ -144,9 +156,18 @@ class AuxoEngine:
         auxo: Optional[AuxoConfig] = None,
         *,
         device=None,
+        devices=None,
         init_params: Optional[Dict[str, np.ndarray]] = None,
     ):
+        if devices is not None:
+            if int(fl.cohort_shards or 0) <= 1:
+                raise ValueError("devices= places cohort shards: set FLConfig.cohort_shards > 1")
+            devices = [canonical_device(d) for d in devices]
+            if device is not None and canonical_device(device) != devices[0]:
+                raise ValueError(f"device {device} is not shard 0's device {devices[0]}")
+            device = devices[0]
         self.device = resolve_device(device)
+        self.devices = devices
         self.task = task
         self.data: DataPlane = as_plane(population)
         self.fl = fl
@@ -191,7 +212,7 @@ class AuxoEngine:
         # keeps plain numpy arrays; the facades below index identically.
         if fl.population_store:
             self.store = make_client_store(
-                self.data.n_clients, self.auxo.d_sketch, bank_capacity(self.auxo)[0]
+                self.data.n_clients, self.auxo.d_sketch, table_capacity(fl, self.auxo)
             )
             self.trace = StreamingAvailability(
                 self.data.n_clients, seed=fl.seed, mode=fl.availability_mode
@@ -229,6 +250,9 @@ class AuxoEngine:
         )
         self._probe_cache_key = -1
         self.probe_train_dispatches = 0  # batched probe trainings run
+        # §⑨ the round step() runs next: advanced by step(), saved by
+        # checkpoint.save_run and restored by load_run
+        self.round_cursor = 0
         self.pipeline = RoundPipeline(self, mode=fl.execution)
 
     # -------------------------------------------------------------- views
@@ -288,6 +312,7 @@ class AuxoEngine:
             departures, arrivals = self.churn.step(r)
             self.apply_churn(departures, arrivals)
         self.pipeline.run_round(r)
+        self.round_cursor = r + 1
 
     # ------------------------------------------------------------ §⑥ churn
     def apply_churn(self, departures=(), arrivals=()):
@@ -486,8 +511,9 @@ def run_fl(task, population, fl: FLConfig, *, device=None, init_params=None) -> 
 
 def run_auxo(
     task, population, fl: FLConfig, auxo: Optional[AuxoConfig] = None, *,
-    device=None, init_params=None,
+    device=None, devices=None, init_params=None,
 ) -> Tuple[AuxoEngine, List[Dict[str, Any]]]:
-    eng = AuxoEngine(task, population, fl, auxo or AuxoConfig(), device=device, init_params=init_params)
+    eng = AuxoEngine(task, population, fl, auxo or AuxoConfig(), device=device, devices=devices,
+                     init_params=init_params)
     hist = eng.run()
     return eng, hist

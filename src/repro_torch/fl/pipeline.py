@@ -40,11 +40,29 @@ pinned memory. Partition events FLUSH the pipeline (drain the stale round
 synchronously, discard the staged plan). ``round_overlap = 0`` keeps the
 strict plan → execute → feedback order.
 
-Cohort sharding over several devices is a later slice (it raises
-``NotImplementedError``).
+PLACEMENT (§④, ``FLConfig.cohort_shards = S > 1``): the CohortBank's slot
+axis splits into S blocks of ``slots_per_shard`` over a cohort mesh
+(``launch/mesh.py``), and the flat row axis into S blocks of
+``shard_width`` rows, block j packed only with participants of cohorts
+whose slots live in shard j. The round then needs no collective: each
+device gathers, trains, segment-sums and server-steps only its own slots;
+only sketches and losses come back to the host for stage ③. The shards
+that share a device form one group (``launch/sharding.shard_groups``),
+held as ONE stacked tensor per bank leaf there: the group's step runs all
+its row blocks as one batch, and each sum is one kernel launch with a
+leading shard axis and block-local slot ids, so S logical shards on one
+card cost what one shard does in launches. Groups on different cards run
+one after another from the host, each on its card's current stream, so
+the cards work at the same time. Row keys follow the plan's canonical
+order (``inv``) and each segment sums its rows in row order wherever its
+block sits, so with the full row width a sharded run is bit-equal to the
+single-device run: always with the plain versions, and on the card while
+the denominators are integer client sizes (the segment kernel's D = 1
+path groups q-FedAvg's real weights by lane position).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -58,10 +76,16 @@ from repro_torch.core.cohort import distance_matrix
 from repro_torch.fl.algorithms import apply_stacked
 from repro_torch.fl.client import local_train
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import cohort_size, make_cohort_mesh
+from repro_torch.launch.sharding import (
+    ShardGroup,
+    bank_placement,
+    padded_capacity,
+    row_placement,
+    shard_groups,
+)
 from repro_torch.scale.store import ChunkedAffinityTable
 from repro_torch.utils.tree import tree_map
-
-LATER = "later port slice"
 
 
 def _next_pow2(n: int) -> int:
@@ -80,6 +104,19 @@ def bank_capacity(auxo) -> Tuple[int, int]:
     return 1 + k * n_partitions, 1 + (k - 1) * n_partitions
 
 
+def table_capacity(fl, auxo) -> int:
+    """Affinity-table column count: the bank capacity AFTER shard padding."""
+    return padded_capacity(bank_capacity(auxo)[0], max(1, int(fl.cohort_shards or 1)))
+
+
+def _on(device):
+    """Make ``device`` the current CUDA device (its current stream takes the
+    launches); nothing to do for the CPU."""
+    if device is not None and device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def _set_rows(a: torch.Tensor, rows, v) -> torch.Tensor:
     """A copy of ``a`` with ``a[rows] = v``. Bank updates outside the fused
     step are out of place: a snapshot holding the old tensors (the serving
@@ -95,35 +132,112 @@ def _set_rows(a: torch.Tensor, rows, v) -> torch.Tensor:
 class CohortBank:
     """Stacked parameter storage for all cohort models, fixed capacity.
 
-    Leaves have shape (capacity, ...) on the engine's device; slot 0 is
-    the root cohort "0". Partitions copy the parent slot into freshly
-    allocated child slots. Every update replaces the bank's tensors rather
-    than writing into them, so holding ``params`` is a snapshot.
+    Slot 0 is the root cohort "0". Partitions copy the parent slot into
+    freshly allocated child slots. Every update replaces the bank's tensors
+    rather than writing into them, so holding them is a snapshot.
+
+    PLACEMENT: with a cohort mesh the capacity is padded to a multiple of
+    the shard count and shard j owns the slot block
+    ``[j*slots_per_shard, (j+1)*slots_per_shard)``. The shards of one device
+    form a group, whose blocks live stacked in one tensor per leaf there
+    (``group_params[g]``, ``group_opt[g]``; slot s sits in group
+    ``group_of[s]`` at row ``local_of[s]``). Allocation is round-robin over
+    the shards (allocation n -> slot (n % S)*slots_per_shard + n//S), so
+    live cohorts spread evenly as the tree partitions. ``spawn_children``
+    copies the parent slot once to each group that receives a child: the
+    only time model bytes move between devices. Without a mesh the bank is
+    one group holding every slot on the params' device.
     """
 
-    def __init__(self, params, opt_state, capacity: int):
-        self.capacity = capacity
+    def __init__(self, params, opt_state, capacity: int, mesh=None):
+        self.mesh = mesh
+        self.n_shards = cohort_size(mesh)
+        self.capacity = padded_capacity(capacity, self.n_shards)
+        self.slots_per_shard = self.capacity // self.n_shards
+        # the device of the assembled (capacity, ...) view: the params' own
+        self.home = next(iter(params.values())).device
+        self.groups = [ShardGroup(self.home, (0,))] if mesh is None else shard_groups(mesh)
+        self.group_slots = bank_placement(self.groups, self.slots_per_shard)
+        self.group_of = np.zeros(self.capacity, np.int64)
+        self.local_of = np.zeros(self.capacity, np.int64)
+        for g, slots in enumerate(self.group_slots):
+            self.group_of[slots] = g
+            self.local_of[slots] = np.arange(slots.size)
 
-        def stack(a):
-            out = torch.zeros((capacity,) + tuple(a.shape), dtype=a.dtype, device=a.device)
-            out[0] = a
+        def stack(a, g):
+            dev = self.groups[g].device
+            out = torch.zeros((self.group_slots[g].size,) + tuple(a.shape), dtype=a.dtype, device=dev)
+            if self.group_of[0] == g:
+                out[int(self.local_of[0])] = a.to(dev)
             return out
 
-        self.params = tree_map(stack, params)
-        self.opt_state = tree_map(stack, opt_state)
+        self.group_params = [tree_map(lambda a: stack(a, g), params) for g in range(len(self.groups))]
+        self.group_opt = [tree_map(lambda a: stack(a, g), opt_state) for g in range(len(self.groups))]
         self.slot_of: Dict[str, int] = {"0": 0}
         self.id_of: Dict[int, str] = {0: "0"}
         self.clock = np.zeros(self.capacity, np.float64)
         self.rounds = np.zeros(self.capacity, np.int64)
-        self._next = 1  # number of allocated slots
+        self._next = 1  # number of allocated slots (allocation counter)
+
+    # ---------------------------------------------- the (capacity, ...) view
+    def assemble(self, groups_tree: list):
+        """The (capacity, ...) view of per-group trees: the group's own
+        tensors for one group, else a copy in slot order on ``home``."""
+        if len(self.groups) == 1:
+            return groups_tree[0]
+        sps = self.slots_per_shard
+        parts = []
+        for j in range(self.n_shards):
+            g = next(i for i, gr in enumerate(self.groups) if j in gr.shards)
+            pos = self.groups[g].shards.index(j)
+            parts.append(tree_map(lambda a: a[pos * sps:(pos + 1) * sps].to(self.home), groups_tree[g]))
+        return tree_map(lambda *blocks: torch.cat(blocks), *parts)
+
+    def _split(self, tree) -> list:
+        if len(self.groups) == 1:
+            return [tree]
+        return [
+            tree_map(lambda a: a[torch.as_tensor(slots, device=a.device)].to(gr.device), tree)
+            for gr, slots in zip(self.groups, self.group_slots)
+        ]
+
+    @property
+    def params(self):
+        return self.assemble(self.group_params)
+
+    @params.setter
+    def params(self, tree):
+        self.group_params = self._split(tree)
+
+    @property
+    def opt_state(self):
+        return self.assemble(self.group_opt)
+
+    @opt_state.setter
+    def opt_state(self, tree):
+        self.group_opt = self._split(tree)
+
+    # ------------------------------------------------------- slot algebra
+    def shard_of(self, slot: int) -> int:
+        """Mesh position of the shard owning ``slot``."""
+        return slot // self.slots_per_shard
+
+    def _alloc_slot(self, n: int) -> int:
+        """Slot id of the n-th allocation: round-robin across shard blocks
+        so concurrently-live cohorts land on different shards."""
+        if self.n_shards == 1:
+            return n
+        return (n % self.n_shards) * self.slots_per_shard + n // self.n_shards
 
     def params_of(self, cohort_id: str):
         i = self.slot_of[cohort_id]
-        return {k: a[i] for k, a in self.params.items()}
+        g, row = int(self.group_of[i]), int(self.local_of[i])
+        return {k: a[row] for k, a in self.group_params[g].items()}
 
     def opt_state_of(self, cohort_id: str):
         i = self.slot_of[cohort_id]
-        return tree_map(lambda a: a[i], self.opt_state)
+        g, row = int(self.group_of[i]), int(self.local_of[i])
+        return tree_map(lambda a: a[row], self.group_opt[g])
 
     def spawn_children(self, parent: str, children: List[str]) -> List[int]:
         """Warm-start child slots from the parent slot (§4.2)."""
@@ -132,14 +246,23 @@ class CohortBank:
         for ch in children:
             if self._next >= self.capacity:
                 raise RuntimeError(f"CohortBank capacity {self.capacity} exhausted at {ch}")
-            slot = self._next
+            slot = self._alloc_slot(self._next)
             self.slot_of[ch] = slot
             self.id_of[slot] = ch
             idx.append(slot)
             self._next += 1
-
-        self.params = tree_map(lambda a: _set_rows(a, idx, a[ps]), self.params)
-        self.opt_state = tree_map(lambda a: _set_rows(a, idx, a[ps]), self.opt_state)
+        pg, prow = int(self.group_of[ps]), int(self.local_of[ps])
+        src_p = tree_map(lambda a: a[prow], self.group_params[pg])
+        src_o = tree_map(lambda a: a[prow], self.group_opt[pg])
+        new_p, new_o = list(self.group_params), list(self.group_opt)
+        for g in range(len(self.groups)):
+            rows = [int(self.local_of[s]) for s in idx if self.group_of[s] == g]
+            if not rows:
+                continue
+            # the parent's row goes to group g's device once for all its children
+            new_p[g] = tree_map(lambda a, v: _set_rows(a, rows, v.to(a.device)), new_p[g], src_p)
+            new_o[g] = tree_map(lambda a, v: _set_rows(a, rows, v.to(a.device)), new_o[g], src_o)
+        self.group_params, self.group_opt = new_p, new_o
         self.clock[idx] = self.clock[ps]
         self.rounds[idx] = self.rounds[ps]
         return idx
@@ -233,10 +356,16 @@ def check_cross_cohort_unique(client_rows: np.ndarray, kept: np.ndarray):
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class MatchPlan:
-    """Stage-① output: the round's flat, fixed-width execution layout. Rows
-    fill leaf by leaf in tree order; the first ``n_real`` rows are real
-    participants, the rest padding (the JAX package's canonical order,
-    which on one device is the row order itself)."""
+    """Stage-① output: the round's flat, fixed-width execution layout.
+
+    B = n_shards * shard_width; under sharding rows [j*W, (j+1)*W) are
+    block j and hold only participants of cohorts placed in shard j (plus
+    padding). ``order`` is the layout-free canonical fill order (leaf by
+    leaf, in tree order; the first ``n_real`` entries are the real rows):
+    host data sampling and per-row threefry keys follow it, so sharded and
+    single-device runs draw the same streams. On one device it is the
+    identity.
+    """
 
     round_idx: int
     leaves: List[str]  # all leaf cohorts, tree order
@@ -250,7 +379,9 @@ class MatchPlan:
     update_slots: np.ndarray  # (capacity,) bool — slots that train this round
     durations: Dict[str, float]
     key_seed: int
+    order: np.ndarray  # (B,) int32 canonical row order; first n_real real
     n_real: int  # real participant rows this round
+    dropped: int  # participants dropped to a full shard row block (§④)
 
 
 class ExecResult:
@@ -262,13 +393,17 @@ class ExecResult:
     buffers, and records an event after them: the dispatch returns at once,
     and the first read (stage ③, a round later) waits on the event. The
     buffers hold stale bytes until the event has completed, so every read
-    goes through the properties.
+    goes through the properties. Under sharding each device group's rows
+    come back on their own and are put in row order at the first read.
     """
 
-    def __init__(self, sketches: np.ndarray, losses: np.ndarray, ready=None):
+    def __init__(self, sketches, losses, ready=None, rows=None):
+        # numpy arrays; or, with ``rows`` (each group's row ids), lists of
+        # per-group arrays
         self._sketches = sketches
         self._losses = losses
-        self._ready = ready  # torch.cuda.Event recorded after the copies
+        self._ready = ready  # torch.cuda.Events recorded after the copies, or None
+        self._rows = rows
 
     @classmethod
     def fetch(cls, sketches: torch.Tensor, losses: torch.Tensor, lazy: bool) -> "ExecResult":
@@ -280,12 +415,33 @@ class ExecResult:
         hl.copy_(losses, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        return cls(hs.numpy(), hl.numpy(), ready)
+        return cls(hs.numpy(), hl.numpy(), [ready])
+
+    @classmethod
+    def gather(cls, parts, lazy: bool, rows) -> "ExecResult":
+        """``parts``: each device group's (sketches, losses, device), fetched
+        on that device's stream; ``rows``: each group's row ids, or None
+        when one group holds every row in order."""
+        got = []
+        for sk, ls, dev in parts:
+            with _on(dev):
+                got.append(cls.fetch(sk, ls, lazy))
+        if rows is None:
+            return got[0]
+        ready = [ev for r in got for ev in (r._ready or ())]
+        return cls([r._sketches for r in got], [r._losses for r in got], ready or None, rows)
 
     def _wait(self):
-        if self._ready is not None:
-            self._ready.synchronize()
-            self._ready = None
+        for ev in self._ready or ():
+            ev.synchronize()
+        self._ready = None
+        if self._rows is not None:
+            n = sum(r.size for r in self._rows)
+            sk = np.empty((n,) + self._sketches[0].shape[1:], self._sketches[0].dtype)
+            ls = np.empty((n,), self._losses[0].dtype)
+            for r, a, b in zip(self._rows, self._sketches, self._losses):
+                sk[r], ls[r] = a, b
+            self._sketches, self._losses, self._rows = sk, ls, None
 
     @property
     def sketches(self) -> np.ndarray:
@@ -302,21 +458,24 @@ class ExecResult:
 # The pipeline
 # ---------------------------------------------------------------------------
 class RoundPipeline:
-    """Drives one global round on one device.
+    """Drives one global round.
 
-    mode="batched"    — one fused step for the execution stage and one
-                        batched pass for the feedback clustering,
-                        independent of the leaf-cohort count.
+    mode="batched"    — one fused step for the execution stage (one per
+                        device group under sharding) and one batched pass
+                        for the feedback clustering, independent of the
+                        leaf-cohort count.
     mode="sequential" — reference oracle: same plan, same feedback
                         application, per-cohort training launches.
+
+    With ``FLConfig.cohort_shards = S > 1`` (batched mode only) the bank and
+    the flat row axis split over an S-shard cohort mesh and the round runs
+    with no collective (see the module docstring).
     """
 
     def __init__(self, engine, mode: str = "batched"):
         if mode not in ("batched", "sequential"):
             raise ValueError(f"execution={mode!r}: 'batched' or 'sequential'")
         fl, auxo = engine.fl, engine.auxo
-        if int(fl.cohort_shards or 0) > 1:
-            raise NotImplementedError(f"cohort_shards > 1: {LATER}")
         # §⑤ round pipelining: 0 = synchronous, 1 = depth-2 overlap
         self.overlap = int(fl.round_overlap)
         if self.overlap not in (0, 1):
@@ -326,21 +485,49 @@ class RoundPipeline:
         self.eng = engine
         self.mode = mode
         capacity, self.max_leaves = bank_capacity(auxo)
+        self.n_shards = max(1, int(fl.cohort_shards or 1))
+        if self.n_shards > 1:
+            if mode != "batched":
+                raise ValueError("cohort sharding requires the batched pipeline")
+            self.mesh = make_cohort_mesh(self.n_shards, devices=engine.devices, device=engine.device)
+        else:
+            self.mesh = None
         self.bank = CohortBank(
-            engine._init_params, engine.server_opt.init(engine._init_params), capacity
+            engine._init_params, engine.server_opt.init(engine._init_params), capacity,
+            mesh=self.mesh,
         )
         # §⑥ population plane: with FLConfig.population_store the table is
         # a view over the engine's chunked PopulationStore (same method API,
         # same bit-level math, O(touched clients) memory)
         if engine.store is not None:
             self.table = ChunkedAffinityTable(engine.store)
+            if self.table.capacity != self.bank.capacity:
+                raise ValueError(f"store columns {self.table.capacity} != bank capacity {self.bank.capacity}")
         else:
             self.table = AffinityTable(engine.data.n_clients, self.bank.capacity)
         self._all_ids_cache: Optional[np.ndarray] = None
         # flat execution width: the full round budget, fixed for the run;
         # L·quota(L) ≤ max(int(P·oc), 2·L) for every leaf count L
         self.width = max(2, int(fl.participants_per_round * fl.overcommit), 2 * self.max_leaves)
-        self.exec_dispatches = 0  # training launches of stage ② (one per cohort in sequential)
+        # per-shard row block (§④): the default, 2·width/S (twice the
+        # balanced share), absorbs leaf-placement skew; a cohort whose block
+        # fills trains with fewer participants that round (counted in
+        # dropped_rows). rows_per_shard = width keeps single-device
+        # semantics at the cost of S·width padded rows.
+        if self.n_shards == 1:
+            self.shard_width = self.width
+        else:
+            auto = min(self.width, max(2, -(-2 * self.width // self.n_shards)))
+            self.shard_width = int(fl.rows_per_shard or auto)
+        self.exec_width = self.shard_width * self.n_shards
+        # each device group's rows, in its stacked buffers' order (None: one
+        # group holds every row in order)
+        self.group_rows = (
+            None if len(self.bank.groups) == 1
+            else row_placement(self.bank.groups, self.shard_width)
+        )
+        self.exec_dispatches = 0  # stage-② steps (one a round; one per cohort in sequential)
+        self.dropped_rows = 0  # participants dropped to full shard blocks
         # host control plane (§⑤): with the overlap on, stage-①/③ control
         # math runs as numpy twins; overridable for the staleness oracle
         self.host_control = bool(self.overlap)
@@ -348,18 +535,25 @@ class RoundPipeline:
             engine.coordinator.use_host_states()
         self._inflight: Optional[Tuple[MatchPlan, ExecResult]] = None  # dispatched, not retired
         self._staged: Optional[Tuple[int, Any, Any]] = None  # (round, plan, packed)
-        # host copies (xs, ys) of the staged round's row buffers
-        self._staged_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # §⑨ host copies (xs, ys, inv) of the staged round's row buffers:
+        # the device-staged tuple is layout-bound, checkpoint.run_state
+        # saves these and re-stages them on load
+        self._staged_host: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
         self.flushes = 0  # partition-triggered pipeline flushes
         # §⑧ serving snapshot: the newest bank state consistent with the
-        # host tables (a round boundary). Bank updates replace its tensors,
-        # so holding the reference is a snapshot. With the overlap on, the
-        # live bank is round r while the tables hold round r-1: run_round
-        # publishes the pre-dispatch bank then, the drained bank after a
-        # flush.
-        self.serve_params = self.bank.params
+        # host tables (a round boundary), as the bank's per-group trees.
+        # Bank updates replace them, so holding them is a snapshot. With
+        # the overlap on, the live bank is round r while the tables hold
+        # round r-1: run_round publishes the pre-dispatch bank then, the
+        # drained bank after a flush.
+        self._serve = self.bank.group_params
         # cumulative host wall-time per stage
         self.stage_seconds = {"plan": 0.0, "pack": 0.0, "dispatch": 0.0, "feedback": 0.0}
+
+    @property
+    def serve_params(self):
+        """The serving snapshot as a (capacity, ...) tree."""
+        return self.bank.assemble(self._serve)
 
     @property
     def _all_ids(self) -> np.ndarray:
@@ -382,7 +576,7 @@ class RoundPipeline:
                 # §⑥ streaming availability: per-chunk Poisson counts +
                 # in-chunk id sampling, capped at a candidate pool around
                 # the round budget (the full active set is never built)
-                pool = max(4 * self.width, 2 * int(fl.participants_per_round))
+                pool = max(4 * self.exec_width, 2 * int(fl.participants_per_round))
                 avail, _n_avail = eng.trace.sample(r, pool, eng.rng)
             else:
                 avail = np.asarray(eng.trace.available(r, eng.rng))
@@ -409,7 +603,7 @@ class RoundPipeline:
 
         # per-cohort resource budget: equal split of the round budget (§4.4)
         quota = max(2, int(fl.participants_per_round * fl.overcommit / len(leaves)))
-        B = self.width
+        B, W = self.exec_width, self.shard_width
         slot_rows = np.zeros(B, np.int32)
         client_rows = np.zeros(B, np.int32)
         real = np.zeros(B, bool)
@@ -418,13 +612,25 @@ class RoundPipeline:
         update_slots = np.zeros(self.bank.capacity, bool)
         durations: Dict[str, float] = {}
         active: List[str] = []
-        cursor = 0
+        cursors = np.zeros(self.n_shards, np.int64)  # fill level per block
+        order_list: List[int] = []  # canonical (layout-free) order
+        dropped = 0
         for li, leaf in enumerate(leaves):
             cand = avail[want == li]
             if cand.size < 2:
                 continue
             ccl = claimed[want == li]
             take = min(quota, cand.size)
+            # §④ per-shard participant capacity: a cohort trains with at
+            # most the free rows of its slot's shard block
+            shard = self.bank.shard_of(int(slots[li]))
+            space = int(W - cursors[shard])
+            if take > space:
+                dropped += take - space
+                take = space
+            if take < 2:
+                dropped += take
+                continue
             sel = eng.rng.choice(cand.size, size=take, replace=False)
             part = cand[sel]
             # over-commitment straggler drop: latency is a pure function of
@@ -432,7 +638,8 @@ class RoundPipeline:
             kept_ids, duration = eng.speeds.round_duration(
                 part, fl.local_steps * fl.batch_size, overcommit=fl.overcommit
             )
-            rows = slice(cursor, cursor + take)
+            base = shard * W + int(cursors[shard])
+            rows = slice(base, base + take)
             slot_rows[rows] = slots[li]
             client_rows[rows] = part
             real[rows] = True
@@ -441,21 +648,35 @@ class RoundPipeline:
             update_slots[slots[li]] = True
             durations[leaf] = duration
             active.append(leaf)
-            cursor += take
-        n_real = cursor
+            cursors[shard] += take
+            order_list.extend(range(rows.start, rows.stop))
+        n_real = len(order_list)
         if n_real == 0:
             return None
-        # padding rows replicate the first row (weight 0, never kept)
-        slot_rows[n_real:] = slot_rows[0]
-        client_rows[n_real:] = client_rows[0]
+        # padding rows replicate their block's first row (weight 0, never
+        # kept); an EMPTY block pads with its shard's first local slot, so
+        # the per-row param gather never leaves the shard
+        first_real = order_list[0]
+        for j in range(self.n_shards):
+            lo, hi = j * W + int(cursors[j]), (j + 1) * W
+            if lo == hi:
+                continue
+            src = j * W if cursors[j] > 0 else first_real
+            slot_rows[lo:hi] = slot_rows[src] if cursors[j] > 0 else j * self.bank.slots_per_shard
+            client_rows[lo:hi] = client_rows[src]
+        order = np.concatenate(
+            [np.asarray(order_list, np.int64), np.flatnonzero(~real)]
+        ).astype(np.int32)
         if not fl.allow_cross_cohort_duplicates:
             check_cross_cohort_unique(client_rows, kept)
+        self.dropped_rows += dropped
         sizes = eng.data.client_sizes(client_rows).astype(np.float32)
         return MatchPlan(
             round_idx=r, leaves=leaves, active=active, slot_rows=slot_rows,
             client_rows=client_rows, real=real, kept=kept, claimed=claim_rows,
             sizes=sizes, update_slots=update_slots, durations=durations,
-            key_seed=int(eng.rng.integers(2**31)), n_real=n_real,
+            key_seed=int(eng.rng.integers(2**31)), order=order, n_real=n_real,
+            dropped=dropped,
         )
 
     def _match_vectorized(self, r, avail, leaves, slots):
@@ -560,18 +781,26 @@ class RoundPipeline:
                 store.scatter("rearrived", kept_ids[warm], False)
 
     # ------------------------------------------------------------ stage ②
-    def _exec_step(self, slot_rows, xs, ys, seed, sizes, kept, upd):
-        """Every leaf cohort's local training, masked aggregation and server
-        optimizer over the stacked bank -> (new params, new opt state,
-        sketches (B, d_sketch), losses (B,))."""
+    def _exec_step(self, slot_rows, xs, ys, seed, inv, sizes, kept, upd, block_ids=None,
+                   group: int = 0):
+        """One device group's round: every leaf cohort's local training,
+        masked aggregation and server optimizer over the group's stacked
+        bank -> (new params, new opt state, sketches (R, d_sketch), losses
+        (R,)).
+
+        ``slot_rows`` index the group's stacked bank (global slot ids on one
+        device); ``block_ids`` (n, W) are the same rows' block-local slot
+        ids (None: one block, the slot rows themselves). Each sum is one
+        launch over the group's n row blocks into their ``slots_per_shard``
+        slots each, no row reaching another shard's slots."""
         eng, fl = self.eng, self.eng.fl
-        nseg = self.bank.capacity
-        bparams = self.bank.params
-        # per-row threefry keys: row i uses split(key(seed), B)[i], the JAX
-        # package's stream; only DP noise draws from them
+        bparams, bopt = self.bank.group_params[group], self.bank.group_opt[group]
+        # per-row threefry keys: row i uses split(key(seed), B)[inv[i]], the
+        # JAX package's stream in the plan's canonical order, so a row's key
+        # does not depend on the layout; only DP noise draws from them
         keys = None
         if fl.dp_clip > 0.0 and fl.dp_sigma > 0.0:
-            keys = rnd.split(rnd.key(seed, device=eng.device), self.width)
+            keys = rnd.split(rnd.key(seed, device=xs.device), self.exec_width)[inv]
         prow = {k: a[slot_rows] for k, a in bparams.items()}  # gather
         deltas, losses = local_train(
             eng.task.loss, prow, xs, ys, keys, lr=fl.lr, prox_mu=fl.prox_mu,
@@ -580,31 +809,38 @@ class RoundPipeline:
         # masked per-cohort aggregation (q-FedAvg or size weighting)
         wr = torch.pow(torch.clamp(losses, min=1e-6), fl.qfed_q) if fl.qfed_q > 0 else sizes
         wr = wr * kept
-        denom = kops.segment_aggregate(wr[:, None], slot_rows, nseg)[:, 0]
-        w = wr / torch.clamp(denom[slot_rows], min=1e-9)
         names = sorted(deltas)
-        B = slot_rows.shape[0]
-        flat = torch.cat([deltas[k].reshape(B, -1) for k in names], dim=1)
-        agg_flat = kops.segment_aggregate(flat, slot_rows, nseg, weights=w)  # (nseg, n_params)
+        flat = torch.cat([deltas[k].reshape(slot_rows.shape[0], -1) for k in names], dim=1)
+        if block_ids is None:
+            block_ids = slot_rows.view(1, -1)
+        n, W = block_ids.shape
+        sps = self.bank.slots_per_shard
+        denom = kops.segment_aggregate(wr.view(n, W, 1), block_ids, sps).reshape(n * sps)
+        w = wr / torch.clamp(denom[slot_rows], min=1e-9)
+        agg_flat = kops.segment_aggregate(  # (n * sps, n_params)
+            flat.view(n, W, -1), block_ids, sps, weights=w.view(n, W)
+        ).reshape(n * sps, -1)
         agg, off = {}, 0
         for k in names:
-            n = bparams[k][0].numel()
-            agg[k] = agg_flat[:, off:off + n].reshape(bparams[k].shape)
-            off += n
-        new_p, new_o = apply_stacked(eng.server_opt, bparams, self.bank.opt_state, agg, upd)
+            m = bparams[k][0].numel()
+            agg[k] = agg_flat[:, off:off + m].reshape(bparams[k].shape)
+            off += m
+        new_p, new_o = apply_stacked(eng.server_opt, bparams, bopt, agg, upd)
         sketches = eng.sketcher.batch(deltas)
         return new_p, new_o, sketches, losses
 
     def _pack_rows(self, plan: MatchPlan):
         """Host-side data plane: local batches for every row as ONE batched
-        population draw in the canonical order (padding rows replicate the
-        first row's batch with weight 0). Batched mode stages them on the
-        device (``_stage_buffers``); the sequential oracle keeps host
-        arrays plus per-row threefry keys drawn on the host, row i's key
-        ``split(key(key_seed), B)[i]``."""
+        population draw in the plan's canonical order (so every shard layout
+        draws the same stream); padding rows replicate the first real row's
+        batch with weight 0. Batched mode stages them on the device(s)
+        (``_stage_buffers``); the sequential oracle keeps host arrays plus
+        per-row threefry keys drawn on the host, row i's key
+        ``split(key(key_seed), B)[inv[i]]``."""
         eng, fl = self.eng, self.eng.fl
-        B, n = plan.slot_rows.shape[0], plan.n_real
-        cids = plan.client_rows[:n]
+        B = plan.slot_rows.shape[0]
+        order_real = plan.order[: plan.n_real]
+        cids = plan.client_rows[order_real]
         xs_r, ys_r = eng.data.sample_batches(cids, fl.batch_size, fl.local_steps, eng.rng)
         if eng.corrupted:
             bad = np.isin(cids, np.fromiter(eng.corrupted, np.int64, len(eng.corrupted)))
@@ -612,42 +848,66 @@ class RoundPipeline:
                 ys_r[bad] = eng.rng.integers(
                     0, eng.data.n_classes, size=ys_r[bad].shape
                 ).astype(ys_r.dtype)
-        xs = np.empty((B,) + xs_r.shape[1:], xs_r.dtype)
-        ys = np.empty((B,) + ys_r.shape[1:], ys_r.dtype)
-        xs[:n], ys[:n] = xs_r, ys_r
-        xs[n:], ys[n:] = xs_r[0], ys_r[0]
+        xs = np.zeros((B,) + xs_r.shape[1:], xs_r.dtype)
+        ys = np.zeros((B,) + ys_r.shape[1:], ys_r.dtype)
+        xs[order_real] = xs_r
+        ys[order_real] = ys_r
+        pad = plan.order[plan.n_real:]
+        src = int(plan.order[0])
+        xs[pad] = xs[src]
+        ys[pad] = ys[src]
+        inv = np.empty(B, np.int64)
+        inv[plan.order] = np.arange(B)
         if self.mode != "batched":
-            return xs, ys, rnd.split(rnd.key(plan.key_seed), B)
+            return xs, ys, rnd.split(rnd.key(plan.key_seed), B)[torch.from_numpy(inv)]
+        inv32 = inv.astype(np.int32)
         if self.overlap:
             # the last _pack_rows of a run_round is the staged next round
-            self._staged_host = (xs, ys)
-        return self._stage_buffers(plan, xs, ys)
+            self._staged_host = (xs, ys, inv32)
+        return self._stage_buffers(plan, xs, ys, inv32)
 
-    def _stage_buffers(self, plan: MatchPlan, xs, ys) -> tuple:
-        """One round's row buffers on the device, execution-ready. Under the
-        overlap on the card each goes up from pinned memory by an
-        asynchronous copy, queued behind the round in flight, so the host
-        goes on; PyTorch's pinned-memory cache hands a staging buffer out
-        again only after the event of its copy has completed, so a buffer is
-        never rewritten under a pending copy."""
-        dev = self.eng.device
-        pinned = self.overlap and dev.type == "cuda"
+    def _stage_buffers(self, plan: MatchPlan, xs, ys, inv) -> list:
+        """One round's row buffers on the device(s), execution-ready: per
+        device group, the arguments of ``_exec_step`` and its block-local
+        slot ids (None for one shard). Under the overlap on the card each
+        buffer goes up from pinned memory by an asynchronous copy, queued
+        behind the round in flight, so the host goes on; PyTorch's
+        pinned-memory cache hands a staging buffer out again only after the
+        event of its copy has completed, so a buffer is never rewritten
+        under a pending copy."""
+        bank, W, sps = self.bank, self.shard_width, self.bank.slots_per_shard
+        noise = self.eng.fl.dp_clip > 0.0 and self.eng.fl.dp_sigma > 0.0  # the keys' only use
+        out = []
+        for g, grp in enumerate(bank.groups):
+            dev = grp.device
+            pinned = self.overlap and dev.type == "cuda"
 
-        def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if pinned:
-                return t.pin_memory().to(dev, non_blocking=True)
-            return t.to(dev)
+            def put(a):
+                t = torch.from_numpy(np.ascontiguousarray(a))
+                if pinned:
+                    return t.pin_memory().to(dev, non_blocking=True)
+                return t.to(dev)
 
-        return (
-            put(plan.slot_rows.astype(np.int64)),
-            put(xs),
-            put(ys),
-            int(plan.key_seed),
-            put(plan.sizes),
-            put(plan.kept.astype(np.float32)),
-            put(plan.update_slots),
-        )
+            rows = None if self.group_rows is None else self.group_rows[g]
+            take = (lambda a: a) if rows is None else (lambda a: a[rows])
+            slots = take(plan.slot_rows).astype(np.int64)
+            block_ids = None  # one shard: its rows' slot ids are the block's
+            if self.n_shards > 1:
+                # block-local slot ids: row block j only references shard j's slots
+                row_ids = np.arange(plan.slot_rows.size) if rows is None else rows
+                block_ids = put((slots - (row_ids // W) * sps).reshape(len(grp.shards), W))
+            args = (
+                put(bank.local_of[slots]),
+                put(take(xs)),
+                put(take(ys)),
+                int(plan.key_seed),
+                put(take(inv).astype(np.int64)) if noise else None,
+                put(take(plan.sizes)),
+                put(take(plan.kept).astype(np.float32)),
+                put(plan.update_slots[bank.group_slots[g]]),
+            )
+            out.append((args, block_ids))
+        return out
 
     def execute(self, plan: MatchPlan, packed=None) -> ExecResult:
         """Stage ②: run the round's training on the device. Under the
@@ -671,12 +931,21 @@ class RoundPipeline:
         return res
 
     def _execute_batched(self, staged) -> ExecResult:
-        with torch.no_grad():
-            new_p, new_o, sketches, losses = self._exec_step(*staged)
+        """One step per device group, each on its device's current stream;
+        the host issues them one after another, so the devices run them at
+        the same time."""
+        bank = self.bank
+        new_p, new_o, parts = list(bank.group_params), list(bank.group_opt), []
+        for g, (args, block_ids) in enumerate(staged):
+            dev = bank.groups[g].device
+            with torch.no_grad(), _on(dev):
+                new_p[g], new_o[g], sketches, losses = self._exec_step(
+                    *args, block_ids=block_ids, group=g
+                )
+            parts.append((sketches, losses, dev))
         self.exec_dispatches += 1
-        self.bank.params = new_p
-        self.bank.opt_state = new_o
-        return ExecResult.fetch(sketches, losses, lazy=bool(self.overlap))
+        bank.group_params, bank.group_opt = new_p, new_o
+        return ExecResult.gather(parts, bool(self.overlap), self.group_rows)
 
     def _execute_sequential(self, plan: MatchPlan, xs, ys, keys) -> ExecResult:
         """Reference oracle: one padded training launch PER cohort, a
@@ -906,7 +1175,7 @@ class RoundPipeline:
         if self._retire():
             self._staged = None
             self._staged_host = None
-        self.serve_params = self.bank.params
+        self._serve = self.bank.group_params
 
     def run_round(self, r: int):
         if not self.overlap:
@@ -914,7 +1183,7 @@ class RoundPipeline:
             if plan is None:
                 return
             self.apply_feedback(plan, self.execute(plan))
-            self.serve_params = self.bank.params
+            self._serve = self.bank.group_params
             return
         # §⑤ depth-2 overlapped schedule. Host-visible order per call:
         #   wait for round r-1's sketches/losses (its event: the ONLY wait
@@ -934,7 +1203,7 @@ class RoundPipeline:
         # serving snapshot candidate: the bank BEFORE round r's dispatch
         # replaces it (round r-1's values, consistent with the tables once
         # prev's feedback lands)
-        pre = self.bank.params
+        pre = self.bank.group_params
         res = self.execute(plan, packed) if plan is not None else None
         events = prev is not None and self.apply_feedback(*prev)
         if plan is not None:
@@ -949,7 +1218,7 @@ class RoundPipeline:
                 self._inflight = (plan, res)
         # publish the serving snapshot for the gap ahead: boundary r-1
         # while round r stays in flight, boundary r if it was drained
-        self.serve_params = self.bank.params if self._inflight is None else pre
+        self._serve = self.bank.group_params if self._inflight is None else pre
         # stage round r+1 against the current tables: they miss only round
         # r's feedback (in flight), stale by exactly one round
         self._staged = self._plan_and_pack(r + 1)

@@ -30,14 +30,26 @@ def segment_aggregate(
 ) -> torch.Tensor:
     """data: (..., P, D); ids: (..., P) -> (..., K, D) weighted segment sums.
 
-    Ids outside [0, K) match no one-hot column and contribute nothing.
+    Each segment adds its rows one after another in row order, starting
+    from zero (``index_add_``), so a segment's sum does not depend on where
+    its rows sit in the call: the same rows at another offset, or in another
+    cohort block of a stacked call, give the same bits (the elastic remesh
+    relies on it; a one-hot matmul groups rows by the GEMM's blocking).
+    Ids outside [0, K) contribute nothing.
     """
     d = data.float()
     if weights is not None:
         d = d * weights.float()[..., None]
-    kk = torch.arange(num_segments, device=d.device)
-    onehot = (segment_ids.long()[..., None] == kk).to(d.dtype)  # (..., P, K)
-    return onehot.transpose(-1, -2) @ d
+    lead, (P, D) = d.shape[:-2], d.shape[-2:]
+    C, K = math.prod(lead), int(num_segments)
+    ids = segment_ids.long().reshape(C, P)
+    # every cohort gets K rows of the output; ids outside [0, K) go to one
+    # spare row past them, which is dropped
+    rows = torch.where((ids >= 0) & (ids < K),
+                       ids + K * torch.arange(C, device=d.device)[:, None], C * K)
+    out = torch.zeros((C * K + 1, D), dtype=torch.float32, device=d.device)
+    out.index_add_(0, rows.reshape(-1), d.reshape(C * P, D))
+    return out[: C * K].reshape(*lead, K, D)
 
 
 def decode_attention(

@@ -24,6 +24,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.serve\n"
         "import repro_torch.configs.granite_3_2b, repro_torch.configs.shapes\n"
         "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.checkpoint.npz\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.checkpoint.run_state\n"
         "import repro_torch.scale, repro_torch.data.plane, repro_torch.fl.baselines\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -104,13 +105,51 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.fl import AuxoConfig, AuxoEngine, FLConfig, MLPTask
 
     pop = make_population(n_clients=8, n_groups=2, test_per_group=8, seed=0)
+    # cohort placement is ported: sharded engines build on CPU shards, with
+    # and without the overlap
     for kw in (dict(cohort_shards=2), dict(cohort_shards=2, round_overlap=1)):
-        with pytest.raises(NotImplementedError):
-            AuxoEngine(MLPTask(), pop, FLConfig(rounds=1, **kw), AuxoConfig(), device="cpu")
+        eng = AuxoEngine(MLPTask(), pop, FLConfig(rounds=1, **kw), AuxoConfig(), device="cpu")
+        assert eng.pipeline.bank.n_shards == 2
+        assert eng.pipeline.mesh.devices == (torch.device("cpu"),) * 2
     # the engine's other single-device modes are ported
     for kw in (dict(round_overlap=1), dict(population_store=True), dict(execution="sequential"),
                dict(population_store=True, availability_mode="chunked", warm_rearrivals=True)):
         AuxoEngine(MLPTask(), pop, FLConfig(rounds=1, **kw), AuxoConfig(), device="cpu")
+
+
+def test_cohort_mesh_past_the_cards_present_raises(monkeypatch):
+    """A CUDA cohort mesh never shrinks and never lands on the CPU: asking
+    for more cards than exist raises, on a host without CUDA any CUDA
+    request raises, and S logical shards on one card are asked for
+    explicitly."""
+    from repro_torch.data import make_population
+    from repro_torch.fl import AuxoConfig, AuxoEngine, FLConfig, MLPTask
+    from repro_torch.launch.mesh import canonical_device, make_cohort_mesh
+
+    pop = make_population(n_clients=8, n_groups=2, test_per_group=8, seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    # "cuda" names the current card: the engine's device and shard 0's agree
+    assert canonical_device("cuda") == canonical_device(None) == torch.device("cuda", 0)
+    assert canonical_device("cpu") == torch.device("cpu")
+    for ask in (lambda: make_cohort_mesh(2),
+                lambda: make_cohort_mesh(2, device="cuda"),
+                lambda: make_cohort_mesh(2, devices=["cuda:0", "cuda:1"])):
+        with pytest.raises(ValueError, match="CUDA device"):
+            ask()
+    one_card = make_cohort_mesh(4, devices=["cuda:0"] * 4)
+    assert one_card.devices == (torch.device("cuda", 0),) * 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for ask in (lambda: make_cohort_mesh(2), lambda: make_cohort_mesh(2, devices=["cuda:0"] * 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ask()
+    # devices= without cohort_shards, or disagreeing with device=, raises
+    with pytest.raises(ValueError, match="cohort_shards"):
+        AuxoEngine(MLPTask(), pop, FLConfig(rounds=1), AuxoConfig(), devices=["cpu"])
+    with pytest.raises(ValueError, match="shard 0"):
+        AuxoEngine(MLPTask(), pop, FLConfig(rounds=1, cohort_shards=2), AuxoConfig(),
+                   device="cpu", devices=["cpu:0", "cpu"])
 
 
 def test_later_model_families_and_sliding_window_decode_raise():

@@ -87,7 +87,7 @@ def test_stage2_fused_step_matches_jax(engines):
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     with torch.no_grad():
         tp, to, tsk, tl = tpipe._exec_step(
-            t(slot_rows).long(), t(xs), t(ys), int(seed), t(sizes), t(kept), t(upd)
+            t(slot_rows).long(), t(xs), t(ys), int(seed), t(inv).long(), t(sizes), t(kept), t(upd)
         )
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(tsk.numpy(), np.asarray(jsk), rtol=RTOL, atol=ATOL)
