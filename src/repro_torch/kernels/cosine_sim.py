@@ -2,11 +2,14 @@
 
 Port of the Pallas kernel ``repro.kernels.cosine_sim.cosine_similarity``.
 CUDA tensors only: ``kernels/ops.py`` routes CPU tensors to the plain
-version in ``kernels/ref.py``.
+version in ``kernels/ref.py``. A fake tensor (``FakeTensorMode``: the dry
+run's plan, for the card) gets the kernel's output allocation and no
+launch.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import build
 
@@ -21,7 +24,7 @@ def cosine_similarity(x: torch.Tensor, c: torch.Tensor, eps: float = 1e-8) -> to
     one CUDA device -> (C, P, K) float32 sims. One launch on the current
     stream; the output is the only allocation."""
     global launches
-    if x.device.type != "cuda" or c.device != x.device:
+    if (x.device.type != "cuda" and not is_fake(x)) or c.device != x.device:
         raise ValueError(f"cosine kernel needs CUDA tensors on one device, got {x.device}, {c.device}")
     if x.dtype not in _DTYPES or c.dtype != x.dtype:
         raise TypeError(f"cosine kernel takes f32 or bf16 inputs of one dtype, got {x.dtype}, {c.dtype}")
@@ -34,7 +37,7 @@ def cosine_similarity(x: torch.Tensor, c: torch.Tensor, eps: float = 1e-8) -> to
     if max(C, P, K, D) >= 2**31:
         raise ValueError("cosine kernel takes 32-bit sizes")
     out = torch.empty((C, P, K), dtype=torch.float32, device=x.device)
-    if C == 0 or P == 0 or K == 0:
+    if C == 0 or P == 0 or K == 0 or is_fake(x):
         return out
     el = x.element_size()
     vec = x.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0 and (D * el) % 16 == 0

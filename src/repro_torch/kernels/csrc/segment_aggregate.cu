@@ -15,44 +15,42 @@
 // takes one multiply and one add; K*D floats are written. A one-hot matmul
 // would spend K times the useful flops and buys nothing here.
 //
-// Design (one pass over the data for any K).
-//  - Wide rows (D >= 32): rows go in chunks of 256, one id per thread. A
-//    block-wide stable counting sort (8-bit digits, one pass for K < 256;
-//    each warp counts its rows by a ballot per digit, or a match past 32
-//    digits) lists each segment's rows in index order, so one accumulator
-//    per column serves every segment and the data is read once. A block
-//    owns a 128-byte column tile of one cohort (32 f32 or 64 bf16 columns).
+// The order of every sum is fixed, and it is the plain version's
+// (``index_add_``): out[c, k, d] = ((+0 + w_1 x_1) + w_2 x_2) + ... over the
+// rows with id k in increasing row order, each product rounded before its
+// add (__fmul_rn, then __fadd_rn: never contracted into an FMA). So a
+// segment's sum has the same bits wherever its rows sit (at any offset, in
+// any cohort block of a stacked call, across any chunk boundary), two
+// launches are bit-identical, and the card gives the CPU's bits. No float
+// atomics: every output element has one owner.
+//
+// Design (one pass over the data for any K and any D).
+//  - Rows go in chunks of 256, one id per thread. A block-wide stable
+//    counting sort (8-bit digits, one pass for K < 256; each warp counts
+//    its rows by a ballot per digit, or a match past 32 digits) lists each
+//    segment's rows in index order. A block owns a 128-byte column tile of
+//    one cohort (32 f32 or 64 bf16 columns; fewer when D is narrower).
 //    The chunk's rows come to shared memory by 16-byte cp.async from the
 //    16-byte boundary below each row's tile bytes (so any D takes
 //    full-width copies), issued while the ids load, so they fly during the
 //    sort, and the next chunk's while this one is summed (two ring slots).
-//    Then one warp sums one segment, lane l owning 4 bytes of each row: the
-//    segment's rows in index order, one after another.
-//    With one chunk a column tile (the main path) each sum is stored
-//    straight to the output; with more, chunks add into a (K, columns)
-//    tile in shared memory in chunk order (into the block's own output
-//    columns when K is too large for it).
-//    When the column tiles of all cohorts fill less than a wave and P spans
-//    several chunks, up to 8 blocks of a thread-block cluster split the
-//    chunks of a column tile (the wrapper's plan), and each block then adds
-//    one share of the segments over the cluster's tiles in rank order,
-//    read through distributed shared memory: still one launch.
-//  - Narrow rows (D < 32, the counts and denominators, D = 1): one block a
-//    cohort, one thread a row, no sort: per column and group of 8-32
-//    segments, each warp sums its rows per segment by an interleaved
-//    butterfly over its lanes (a row adds into its own segment's slot
-//    only), then the warps' sums are added in warp order, the chunks in
-//    chunk order.
-// Every output element has one owner and one fixed order (no float
-// atomics), so two launches are bit-identical. The product is rounded
-// before the add (__fmul_rn, __fadd_rn: never contracted into an FMA), as
-// the plain version computes it.
-#include <cooperative_groups.h>
-
+//  - Then `lanes` threads sum one segment (32 for a full tile; as few as
+//    one for D = 1), each owning 4 bytes of the row: the segment's rows in
+//    index order, one after another, starting from +0 in the first chunk
+//    and from the running sum the earlier chunks left (in a (K, columns)
+//    tile of shared memory, or in the block's own output columns when it
+//    is too large) in every later one. A chunk thus continues each sum;
+//    it never starts a partial sum of its own.
+//  - Row order leaves no parallelism over one segment's rows. When the
+//    column tiles of all cohorts fill less than a wave and P spans several
+//    chunks, the wrapper splits the *segments* over up to 8 blocks of each
+//    column tile (grid y): block y sums segments [y K / n, (y + 1) K / n)
+//    over every chunk, as a call of its own whose other ids are dropped.
+//    The staged rows are read n times (mostly from L2); nothing is added
+//    across blocks.
 #include "common.cuh"
 
 using namespace auxo;
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -61,9 +59,8 @@ constexpr int kChunk = kThreads;  // rows of a chunk: one id per thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowBytes = 128;  // bytes of a row a block owns
 constexpr int kDigitBits = 8;
-constexpr int kNarrowD = 32;
-constexpr int kMaxSplit = 8;                 // blocks of a cluster
-constexpr size_t kAccBytes = 48 * 1024;      // the (K, columns) tile, at most
+constexpr int kMaxSplit = 8;             // segment groups of a column tile
+constexpr size_t kAccBytes = 48 * 1024;  // the (K, columns) tile, at most
 
 struct SortSmem {
   int cnt[(1 << kDigitBits) * kWarps];  // per (digit, warp) counts, digit-major
@@ -197,14 +194,7 @@ __device__ __forceinline__ int seg_start(const SortSmem& ss, int s, int key_bits
   return key_bits <= kDigitBits ? ss.cnt[s * kWarps] : lower_bound(ss.key, kChunk, s);
 }
 
-template <typename I>
-__device__ __forceinline__ int seg_key(const I* ib, int p, int P, int K) {
-  if (p >= P) return K;
-  const I v = ib[p];
-  return (v >= 0 && v < (I)K) ? (int)v : K;
-}
-
-// ------------------------------------------------------------ wide rows
+// ------------------------------------------------------------ staged rows
 constexpr int kSlot = kRowBytes + 16;  // a staged row: its 128 bytes from a 16-byte boundary
 
 // Where a row's tile bytes start within its slot: their offset from the
@@ -245,66 +235,77 @@ __device__ __forceinline__ void load_lane(const unsigned char* p, float (&v)[2])
   v[1] = __uint_as_float((unsigned)h[1] << 16);
 }
 
-struct WideSmem {
+struct BlockSmem {
   SortSmem sort;
   float w[kChunk];             // weight of each chunk row
   int roff[kChunk];            // sorted position: its row's first tile byte in the slot
   float ws[kChunk];            // sorted position: its row's weight
 };
 
-// grid (column tiles, slices, C), clusters of (1, slices, 1). A block owns
-// a 128-byte column tile; lane l of a warp owns its bytes [4l, 4l + 4)
-// (one f32 or two bf16 columns), and a warp sums one segment. Dynamic
-// shared memory: WideSmem, ring_slots tiles of ring_rows staged rows, then
-// the (K, columns) accumulator when acc_in_smem (else the block stores
-// into, or adds into, its own columns of the output).
+// grid (column tiles, segment groups, C). A block owns a 128-byte column
+// tile of one cohort and the segments [s0, s1) of its group; 2**lane_bits
+// threads (1..32) sum one segment, lane l owning bytes
+// [4l, 4l + 4) of the tile (one f32 or two bf16 columns). Dynamic shared
+// memory: BlockSmem, ring_slots tiles of ring_rows staged rows, then the
+// (s1 - s0, columns) accumulator when acc_in_smem (else the block's own
+// rows and columns of the output hold the running sums).
 template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads)
-seg_wide(const T* __restrict__ data, const I* __restrict__ ids, const float* __restrict__ w,
-         float* __restrict__ out, int P, int K, int D, int key_bits, int rows_per_split,
-         int ring_rows, int ring_slots, bool acc_in_smem) {
+seg_sum(const T* __restrict__ data, const I* __restrict__ ids, const float* __restrict__ w,
+        float* __restrict__ out, int P, int K, int D, int key_bits, int lane_bits, int ring_rows,
+        int ring_slots, bool acc_in_smem) {
   constexpr int V = 4 / (int)sizeof(T);
   constexpr int kCols = kRowBytes / (int)sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
-  WideSmem& sm = *reinterpret_cast<WideSmem*>(smem);
-  unsigned char* ring = smem + sizeof(WideSmem);
+  BlockSmem& sm = *reinterpret_cast<BlockSmem*>(smem);
+  unsigned char* ring = smem + sizeof(BlockSmem);
   const size_t slot_bytes = (size_t)ring_rows * kSlot;
-  float* tile = reinterpret_cast<float*>(ring + ring_slots * slot_bytes);  // (K, kCols)
+  float* tile = reinterpret_cast<float*>(ring + ring_slots * slot_bytes);  // (Kb, kCols)
   const int tid = threadIdx.x;
   const int col0 = blockIdx.x * kCols;
-  const int split = blockIdx.y, cz = blockIdx.z;
-  const int pb = split * rows_per_split, pe = min(P, pb + rows_per_split);
+  const int s0 = (int)((long long)blockIdx.y * K / gridDim.y);
+  const int Kb = (int)((long long)(blockIdx.y + 1) * K / gridDim.y) - s0;  // this block's segments
+  const int cz = blockIdx.z;
   const T* db = data + (size_t)cz * P * D;
   const I* ib = ids + (size_t)cz * P;
   const float* wb = w ? w + (size_t)cz * P : nullptr;
-  float* ob = out + (size_t)cz * K * D;
-  const int nch = pe > pb ? (pe - pb + kChunk - 1) / kChunk : 0;
-  // the accumulator: K rows of `stride` floats, columns >= lim past D
+  float* ob = out + ((size_t)cz * K + s0) * D;
+  const int nch = (P + kChunk - 1) / kChunk;
+  // the running sums: Kb rows of `stride` floats, columns >= lim past D
   const int lim = min(kCols, D - col0);
   float* acc = acc_in_smem ? tile : ob + col0;
   const int stride = acc_in_smem ? kCols : D;
   if (nch == 0)  // no rows: zeros
-    for (int i = tid; i < K * kCols; i += kThreads)
+    for (int i = tid; i < Kb * kCols; i += kThreads)
       if (i % kCols < lim) acc[(size_t)(i / kCols) * stride + i % kCols] = 0.f;
+  // the first chunk's ids and weights go out first; its copies are issued
+  // while they fly
+  I raw = tid < min(kChunk, P) ? ib[tid] : (I)-1;
+  float wt = (wb && tid < min(kChunk, P)) ? wb[tid] : 1.f;
   for (int c = 0; c < nch; ++c) {
-    const int p0 = pb + c * kChunk, tp = min(kChunk, pe - p0);
+    const int p0 = c * kChunk, tp = min(kChunk, P - p0);
     const int slot = c % ring_slots;
     const unsigned char* tl = ring + slot * slot_bytes;
-    // the ids and weights go out first; the copies are issued while they fly
-    const I raw = tid < tp ? ib[p0 + tid] : (I)-1;
-    const float wt = (wb && tid < tp) ? wb[p0 + tid] : 1.f;
-    if (c == 0) stage_tile<T>(ring, db + (size_t)pb * D, tp, D, col0);
+    if (c == 0) stage_tile<T>(ring, db, tp, D, col0);
     cp_commit();
-    if (c + 1 < nch) {  // the next chunk's copies fly during this chunk's sort and sums
-      const int p1 = p0 + kChunk;
-      stage_tile<T>(ring + ((c + 1) % ring_slots) * slot_bytes, db + (size_t)p1 * D,
-                    min(kChunk, pe - p1), D, col0);
+    // the next chunk's copies, ids and weights fly during this chunk's sort
+    // and sums
+    I raw_next = (I)-1;
+    float wt_next = 1.f;
+    if (c + 1 < nch) {
+      const int p1 = p0 + kChunk, tp1 = min(kChunk, P - p1);
+      stage_tile<T>(ring + ((c + 1) % ring_slots) * slot_bytes, db + (size_t)p1 * D, tp1, D, col0);
+      if (tid < tp1) {
+        raw_next = ib[p1 + tid];
+        if (wb) wt_next = wb[p1 + tid];
+      }
     }
     cp_commit();
     sm.w[tid] = wt;
-    sort_chunk(raw >= 0 && raw < (I)K ? (int)raw : K, key_bits, sm.sort);
+    // this block's segments are keys 0..Kb-1; every other id is dropped (Kb)
+    sort_chunk(raw >= (I)s0 && raw < (I)(s0 + Kb) ? (int)(raw - (I)s0) : Kb, key_bits, sm.sort);
     __syncthreads();
-    const int n = seg_start(sm.sort, K, key_bits);
+    const int n = seg_start(sm.sort, Kb, key_bits);
     if (tid < n) {
       const int r = sm.sort.row[tid];
       sm.roff[tid] = r * kSlot + row_shift(db + (size_t)(p0 + r) * D, col0);
@@ -312,153 +313,65 @@ seg_wide(const T* __restrict__ data, const I* __restrict__ ids, const float* __r
     }
     cp_wait<1>();  // this chunk's rows have landed (the next chunk's may still fly)
     __syncthreads();
-    // one warp a segment, one lane 4 bytes of the tile: the segment's rows
-    // added in index order, then into the accumulator in chunk order
-    for (int i = tid; i < K * 32; i += kThreads) {
-      const int s = i >> 5, ln = i & 31;
+    // 2**lane_bits threads a segment: its rows added in index order onto the sum
+    // the earlier chunks left (+0 in the first chunk)
+    for (int i = tid; i < Kb << lane_bits; i += kThreads) {
+      const int s = i >> lane_bits, ln = i & ((1 << lane_bits) - 1);
+      if (ln * V >= lim) continue;
       const int st = seg_start(sm.sort, s, key_bits), en = seg_start(sm.sort, s + 1, key_bits);
-      float v[V], sum[V];
-      if (st == en) {
-        if (c > 0) continue;
-#pragma unroll
-        for (int e = 0; e < V; ++e) sum[e] = 0.f;
-      } else {
-        load_lane(tl + sm.roff[st] + ln * 4, v);
-#pragma unroll
-        for (int e = 0; e < V; ++e) sum[e] = __fmul_rn(sm.ws[st], v[e]);
-#pragma unroll 4
-        for (int q = st + 1; q < en; ++q) {
-          load_lane(tl + sm.roff[q] + ln * 4, v);
-          const float wq = sm.ws[q];
-#pragma unroll
-          for (int e = 0; e < V; ++e) sum[e] = __fadd_rn(sum[e], __fmul_rn(wq, v[e]));
-        }
-      }
+      if (c > 0 && st == en) continue;
       float* o = acc + (size_t)s * stride + ln * V;
+      float sum[V], v[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) sum[e] = (c > 0 && ln * V + e < lim) ? o[e] : 0.f;
+#pragma unroll 4
+      for (int q = st; q < en; ++q) {
+        load_lane(tl + sm.roff[q] + ln * 4, v);
+        const float wq = sm.ws[q];
+#pragma unroll
+        for (int e = 0; e < V; ++e) sum[e] = __fadd_rn(sum[e], __fmul_rn(wq, v[e]));
+      }
 #pragma unroll
       for (int e = 0; e < V; ++e)
-        if (ln * V + e < lim) o[e] = c == 0 ? sum[e] : __fadd_rn(o[e], sum[e]);
+        if (ln * V + e < lim) o[e] = sum[e];
     }
     __syncthreads();  // the sort arrays, weights and this slot are reused
+    raw = raw_next;
+    wt = wt_next;
   }
 
   if (!acc_in_smem) return;
-  __syncthreads();
-  if (gridDim.y == 1) {
-    for (int i = tid; i < K * kCols; i += kThreads) {
-      const int s = i / kCols, c = i % kCols;
-      if (c < lim) ob[(size_t)s * D + col0 + c] = tile[i];
-    }
-    return;
-  }
-  // the cluster's slices of this column tile: this block adds segments
-  // [s0, s1) over the blocks' tiles in rank order
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int ns = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
-  const int s0 = r * K / ns, s1 = (r + 1) * K / ns;
-  for (int i = s0 * kCols + tid; i < s1 * kCols; i += kThreads) {
+  for (int i = tid; i < Kb * kCols; i += kThreads) {
     const int s = i / kCols, c = i % kCols;
-    if (c >= lim) continue;
-    float t[kMaxSplit];
-#pragma unroll
-    for (int q = 0; q < kMaxSplit; ++q) t[q] = q < ns ? *cluster.map_shared_rank(tile + i, q) : 0.f;
-    float v = t[0];
-#pragma unroll
-    for (int q = 1; q < kMaxSplit; ++q)
-      if (q < ns) v = __fadd_rn(v, t[q]);
-    ob[(size_t)s * D + col0 + c] = v;
-  }
-  cluster.sync();  // no block leaves while another reads its tile
-}
-
-// ----------------------------------------------------------- narrow rows
-// D < 32: one block a cohort, one thread a row, chunks of blockDim.x rows.
-// For each column and each group of NS segments, a warp's rows are summed
-// per segment by reduce_slots (a row adds into its own segment's slot
-// only), the warps' sums in warp order, the chunks in chunk order.
-template <typename T, typename I, int NS>
-__global__ void __launch_bounds__(kThreads)
-seg_narrow(const T* __restrict__ data, const I* __restrict__ ids, const float* __restrict__ w,
-           float* __restrict__ out, int P, int K, int D) {
-  constexpr int kLanesPerSlot = 32 / NS;
-  __shared__ float part[kWarps][NS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
-  const int cz = blockIdx.x;
-  const T* db = data + (size_t)cz * P * D;
-  const I* ib = ids + (size_t)cz * P;
-  const float* wb = w ? w + (size_t)cz * P : nullptr;
-  float* ob = out + (size_t)cz * K * D;
-  if (P == 0)
-    for (int i = tid; i < K * D; i += blockDim.x) ob[i] = 0.f;
-  for (int p0 = 0; p0 < P; p0 += blockDim.x) {
-    const int p = p0 + tid;
-    const bool row = p < P;  // every load below depends on this alone
-    const int key = seg_key(ib, p, P, K);
-    const float wt = (wb && row) ? wb[p] : 1.f;
-    for (int d = 0; d < D; ++d) {
-      const float x = row ? to_f32(db[(size_t)p * D + d]) : 0.f;
-      const float v = key < K ? __fmul_rn(wt, x) : 0.f;
-      for (int g0 = 0; g0 < K; g0 += NS) {
-        float a[NS];
-#pragma unroll
-        for (int i = 0; i < NS; ++i) a[i] = key == g0 + i ? v : 0.f;
-        const float tot = reduce_slots<NS>(a, lane);
-        if (lane % kLanesPerSlot == 0) part[warp][lane / kLanesPerSlot] = tot;
-        __syncthreads();
-        if (tid < NS && g0 + tid < K) {
-          float s = part[0][tid];
-          for (int u = 1; u < W; ++u) s = __fadd_rn(s, part[u][tid]);
-          float* o = ob + (size_t)(g0 + tid) * D + d;
-          *o = p0 == 0 ? s : __fadd_rn(*o, s);
-        }
-        __syncthreads();  // part is reused
-      }
-    }
+    if (c < lim) ob[(size_t)s * D + col0 + c] = tile[i];
   }
 }
 
 template <typename T, typename I>
 int launch(const T* x, const I* ids, const float* w, float* out, int C, int P, int K, int D,
            int nsplit, cudaStream_t stream) {
-  const int key_bits = 32 - __builtin_clz((unsigned)K);  // keys 0..K, K = dropped
-  if (D < kNarrowD) {  // a block of whole warps, at most one row a thread
-    const int threads = P >= kThreads ? kThreads : max(32, (P + 31) / 32 * 32);
-    if (K <= 8)
-      seg_narrow<T, I, 8><<<C, threads, 0, stream>>>(x, ids, w, out, P, K, D);
-    else if (K <= 16)
-      seg_narrow<T, I, 16><<<C, threads, 0, stream>>>(x, ids, w, out, P, K, D);
-    else
-      seg_narrow<T, I, 32><<<C, threads, 0, stream>>>(x, ids, w, out, P, K, D);
-    return (int)cudaGetLastError();
-  }
+  if (nsplit < 1 || nsplit > kMaxSplit || nsplit > K) return (int)cudaErrorInvalidValue;
+  const int kb = (K + nsplit - 1) / nsplit;            // segments of the largest group
+  const int key_bits = 32 - __builtin_clz((unsigned)kb);  // keys 0..kb, kb = dropped
   const int cols = kRowBytes / (int)sizeof(T);
-  const size_t acc_bytes = sizeof(float) * (size_t)K * cols;
+  // threads a segment: the 4-byte lanes that a tile's columns fill, rounded
+  // up to a power of two (32 from 128 bytes on)
+  const int need = (int)((min((long long)D, (long long)cols) * (long long)sizeof(T) + 3) / 4);
+  int lane_bits = 0;
+  while ((1 << lane_bits) < need) ++lane_bits;
+  const size_t acc_bytes = sizeof(float) * (size_t)kb * cols;
   const int nch = (P + kChunk - 1) / kChunk;
-  // one chunk a column tile: every sum is stored once, straight to the
-  // output; more: they gather in shared memory (if the tile fits)
+  // one chunk: every sum is stored once, straight to the output; more: the
+  // running sums live in shared memory (if the tile fits)
   const bool acc_in_smem = acc_bytes <= kAccBytes && nch > 1;
-  if (nsplit < 1 || nsplit > kMaxSplit || (nsplit > 1 && !acc_in_smem))
-    return (int)cudaErrorInvalidValue;
-  const int per = nch > 0 ? (nch + nsplit - 1) / nsplit : 1;  // chunks per slice
-  const int ring_rows = max(1, min(kChunk, P)), ring_slots = per > 1 ? 2 : 1;
-  const size_t smem = sizeof(WideSmem) + (size_t)ring_slots * ring_rows * kSlot +
+  const int ring_rows = max(1, min(kChunk, P)), ring_slots = nch > 1 ? 2 : 1;
+  const size_t smem = sizeof(BlockSmem) + (size_t)ring_slots * ring_rows * kSlot +
                       (acc_in_smem ? acc_bytes : 0);
-  if (int e = set_smem(seg_wide<T, I>, smem)) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((D + cols - 1) / cols, nsplit, C);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = nsplit;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, seg_wide<T, I>, x, ids, w, out, P, K, D, key_bits,
-                                 per * kChunk, ring_rows, ring_slots, acc_in_smem);
+  if (int e = set_smem(seg_sum<T, I>, smem)) return e;
+  const dim3 grid((D + cols - 1) / cols, nsplit, C);
+  seg_sum<T, I><<<grid, kThreads, smem, stream>>>(x, ids, w, out, P, K, D, key_bits, lane_bits,
+                                                  ring_rows, ring_slots, acc_in_smem);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -477,9 +390,9 @@ int by_ids(const void* data, const void* ids, int id_dtype, const float* w, floa
 
 // data: (C, P, D), ids: (C, P) int32 (id_dtype 0) or int64 (1), w: (C, P)
 // f32 or null, out: (C, K, D) f32; all contiguous. dtype 0 = float32, 1 =
-// bfloat16. nsplit (1..8, D >= 32 and a (K, columns) tile of at most 48 KB
-// only) splits P over that many blocks of a cluster per column tile.
-// Returns a cudaError_t. P may be 0 (the kernel then writes zeros).
+// bfloat16. nsplit (1..min(8, K)) splits the K segments over that many
+// blocks per column tile. Returns a cudaError_t. P may be 0 (the kernel
+// then writes zeros).
 extern "C" int auxo_segment_aggregate(const void* data, const void* ids, const void* w, void* out,
                                       int C, int P, int K, int D, int dtype, int id_dtype,
                                       int nsplit, void* stream) {

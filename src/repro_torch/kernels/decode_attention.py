@@ -3,7 +3,10 @@
 
 Port of the Pallas kernel ``repro.kernels.decode_attention.decode_attention``.
 CUDA tensors only: ``kernels/ops.py`` routes CPU tensors to the plain
-version in ``kernels/ref.py``.
+version in ``kernels/ref.py``. A fake tensor (``FakeTensorMode``: the dry
+run's plan, for the card) gets the kernel's output allocation and no
+launch (nor the split pass's buffer of partial softmaxes, whose size
+depends on the card's SMs).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import math
 from typing import Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import build
 
@@ -60,8 +64,9 @@ def blocks_per_sm(index: int, hd: int, g: int, dtype: torch.dtype) -> int:
 
 
 def aligned(t: torch.Tensor, strides) -> bool:
+    """16-byte aligned start (a fake tensor has no address) and strides."""
     el = t.element_size()
-    return t.data_ptr() % 16 == 0 and all((s * el) % 16 == 0 for s in strides)
+    return (is_fake(t) or t.data_ptr() % 16 == 0) and all((s * el) % 16 == 0 for s in strides)
 
 
 def decode_attention(
@@ -76,7 +81,7 @@ def decode_attention(
     buffer of partial softmaxes, are the only allocations."""
     global launches
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in (k, v, length)):
+    if (dev.type != "cuda" and not is_fake(q)) or any(t.device != dev for t in (k, v, length)):
         raise ValueError(f"decode kernel needs CUDA tensors on one device, got "
                          f"{q.device}, {k.device}, {v.device}, {length.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -109,6 +114,8 @@ def decode_attention(
     g = H // Hkv
     if g > MAX_GROUP:
         raise ValueError(f"decode kernel takes at most {MAX_GROUP} query heads per KV head, got {g}")
+    if is_fake(q):
+        return torch.empty((B, H, hd), dtype=q.dtype, device=dev)
     ns, chunk = plan_splits(B, Hkv, S, sm_count(dev.index),
                             blocks_per_sm(dev.index, hd, g, q.dtype))
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)

@@ -11,13 +11,16 @@ Same contract as ``repro.kernels.ops``:
   - the output is float32.
 A CPU tensor goes to the plain version (``kernels/ref.py``), a CUDA tensor
 to the CUDA kernel; there is no fallback between the two, and any other
-device raises.
+device raises. A fake tensor (``FakeTensorMode``, the dry run's plan)
+stands for the card's on any device: it takes the kernel wrapper's shape
+rule (the kernel's output allocation, no launch), never the plain version.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import cosine_sim as _cs
 from repro_torch.kernels import decode_attention as _da
@@ -28,8 +31,10 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _route(t: torch.Tensor) -> str:
-    if t.device.type in ("cpu", "cuda"):
-        return t.device.type
+    if is_fake(t) or t.device.type == "cuda":
+        return "cuda"
+    if t.device.type == "cpu":
+        return "cpu"
     raise ValueError(f"no kernel route for device {t.device}")
 
 
@@ -40,11 +45,11 @@ def cosine_similarity(x: torch.Tensor, c: torch.Tensor, eps: float = 1e-8) -> to
         return ref.cosine_similarity(x, c, eps)
     lead = x.dim() == 2
     if lead:
-        x, c = x[None], c[None]
+        x, c = x.unsqueeze(0), c.unsqueeze(0)
     if x.dtype != c.dtype or x.dtype not in _KERNEL_DTYPES:
         x, c = x.float(), c.float()
     out = _cs.cosine_similarity(x.contiguous(), c.contiguous(), eps)
-    return out[0] if lead else out
+    return out.squeeze(0) if lead else out
 
 
 def segment_aggregate(
@@ -59,16 +64,16 @@ def segment_aggregate(
         return ref.segment_aggregate(data, segment_ids, num_segments, weights)
     lead = data.dim() == 2
     if lead:
-        data = data[None]
-        segment_ids = segment_ids[None]
-        weights = None if weights is None else weights[None]
+        data = data.unsqueeze(0)
+        segment_ids = segment_ids.unsqueeze(0)
+        weights = None if weights is None else weights.unsqueeze(0)
     if data.dtype not in _KERNEL_DTYPES:
         data = data.float()
     # the kernel reads int32 and int64 ids as they come: no cast launch
     ids = segment_ids if segment_ids.dtype in (torch.int32, torch.int64) else segment_ids.long()
     w = None if weights is None else weights.to(torch.float32).contiguous()
     out = _sa.segment_aggregate(data.contiguous(), ids.contiguous(), num_segments, w)
-    return out[0] if lead else out
+    return out.squeeze(0) if lead else out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length) -> torch.Tensor:

@@ -2,7 +2,10 @@
 
 Port of the Pallas kernel ``repro.kernels.segment_aggregate.segment_aggregate``.
 CUDA tensors only: ``kernels/ops.py`` routes CPU tensors to the plain
-version in ``kernels/ref.py``.
+version in ``kernels/ref.py``. Every sum is the plain version's, bit for
+bit: each segment's rows added in row order from +0 (``index_add_``).
+A fake tensor (``FakeTensorMode``: the dry run's memory and FLOP plan,
+for the card) gets the kernel's output allocation and no launch.
 """
 from __future__ import annotations
 
@@ -10,6 +13,8 @@ import math
 from typing import Optional
 
 import torch
+
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import build
 
@@ -20,24 +25,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ID_DTYPES = {torch.int32: 0, torch.int64: 1}
 CHUNK = 256  # rows a block sorts at once (kChunk in the source)
 TILE_BYTES = 128  # bytes of a row a block owns (kRowBytes)
-NARROW_D = 32  # rows narrower than this take the narrow kernel (kNarrowD)
-MAX_SPLIT = 8  # blocks of a cluster (kMaxSplit)
-ACC_BYTES = 48 * 1024  # the (K, columns) accumulator in shared memory, at most (kAccBytes)
+MAX_SPLIT = 8  # segment groups of a column tile, at most (kMaxSplit)
 
 
 def plan_splits(C: int, P: int, D: int, K: int, element_size: int, sms: int) -> int:
-    """Blocks of a cluster over which each column tile's P chunks are
-    split: 1 unless the column tiles of all cohorts fill less than a wave
-    of ``sms`` SMs, P spans several chunks and the (K, columns) tile fits
-    in shared memory; then as many slices (of whole chunks, in order, at
-    most MAX_SPLIT) as bring the grid to two blocks per SM."""
+    """Blocks over which each column tile's K segments are split (block y
+    of n sums segments ``[y*K//n, (y+1)*K//n)`` over all P rows, so no
+    segment's rows are cut): 1 unless the column tiles of all cohorts fill
+    less than a wave of ``sms`` SMs and P spans several chunks; then as
+    many groups (at most MAX_SPLIT and K) as bring the grid to two blocks
+    per SM."""
     nch = math.ceil(P / CHUNK)
     tiles = C * math.ceil(D * element_size / TILE_BYTES)
-    acc = 4 * K * (TILE_BYTES // element_size)
-    if D < NARROW_D or nch <= 1 or tiles >= sms or acc > ACC_BYTES:
+    if nch <= 1 or K <= 1 or tiles >= sms:
         return 1
-    per = math.ceil(nch / min(nch, MAX_SPLIT, math.ceil(2 * sms / tiles)))
-    return math.ceil(nch / per)
+    return min(K, MAX_SPLIT, math.ceil(2 * sms / tiles))
 
 
 def segment_aggregate(
@@ -52,7 +54,8 @@ def segment_aggregate(
     stream; the output is the only allocation."""
     global launches
     dev = data.device
-    if dev.type != "cuda" or ids.device != dev or (weights is not None and weights.device != dev):
+    if (dev.type != "cuda" and not is_fake(data)) or ids.device != dev or (
+            weights is not None and weights.device != dev):
         raise ValueError("segment kernel needs CUDA tensors on one device")
     if data.dtype not in _DTYPES:
         raise TypeError(f"segment kernel takes f32 or bf16 data, got {data.dtype}")
@@ -72,7 +75,7 @@ def segment_aggregate(
     if max(C, P, D) >= 2**31 or K >= 2**28:
         raise ValueError("segment kernel takes 32-bit sizes and K below 2**28")
     out = torch.empty((C, K, D), dtype=torch.float32, device=dev)
-    if C == 0 or K == 0 or D == 0:
+    if C == 0 or K == 0 or D == 0 or is_fake(data):
         return out
     nsplit = plan_splits(C, P, D, K, data.element_size(), build.sm_count(dev.index))
     err = build.launch(

@@ -1,0 +1,357 @@
+"""Dry run: the per-card memory and FLOP plan of every (arch × shape) on
+the production mesh, on an H100 (port of ``repro.launch.dryrun``).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
+
+No card is needed, as the reference's dry run needs no TPU: the mesh is
+built on the fake process group (``launch.mesh.init_fake_world``) and
+every step runs under ``FakeTensorMode``, which allocates nothing. The
+fake tensors are CUDA tensors where the torch build has CUDA, else CPU
+tensors of the same shapes and dtypes (a CPU-only build cannot index fake
+CUDA tensors); the kernel wrappers give either the kernel's output
+allocation and no launch.
+
+Per card, the report holds:
+  - state bytes: what lives between steps (params under the policy,
+    Yogi's m and v under ``fsdp`` as the reference places them, the
+    clustering state; the decode cache under ``cache_spec``), exact from
+    the specs (``sharding.per_card_bytes``);
+  - input bytes: the card's share of the batch;
+  - step peak: what the step allocates on top (client deltas, gradients,
+    activations, temporaries), the peak live bytes of the step run on the
+    card's share of the batch (``utils.hlo.count_step``) in 1- and 2-unit
+    probes, extrapolated as ``base + per_unit × units``. The probe splits
+    nothing over ``model`` and keeps whole deltas, so under ``tp`` and
+    ``fsdp`` this term is an upper bound;
+  - ``fits``: state + inputs + step peak within the card's 80 GB.
+FLOPs and bytes accessed come from the same probes, extrapolated the same
+way; per card they are the probe's divided evenly over the ``model`` axis
+(an assumption, stated in the report). Collectives are not measured: the
+port has no SPMD execution to record them from (a DTensor run of the
+models does not propagate through the checkpointed blocks), so
+``collective_s`` is null with its reason.
+
+Results land in ``experiments/dryrun_h100/<arch>__<shape>__<mesh>.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.core import sketch
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import data_size, init_fake_world, make_production_mesh, model_size
+from repro_torch.launch.specs import TRAIN_CLIENTS, effective_config, flat_batch_specs, input_specs
+from repro_torch.launch.steps import (
+    StepConfig,
+    make_central_train_step,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+    yogi_init,
+)
+from repro_torch.models.zoo import build_model
+from repro_torch.utils import hlo
+from repro_torch.utils.tree import leaves, tree_map
+
+# archs whose params cannot be replicated per data shard: FSDP + centralized
+FSDP_ARCHS = {"qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"}
+
+OUT_DIR = Path("experiments/dryrun_h100")
+
+NO_COLLECTIVES = ("not measured: the port has no SPMD execution yet (DTensor does not run the "
+                  "models' checkpointed blocks), so no collective is recorded")
+
+
+def _pattern_len(cfg) -> int:
+    """Layers per repeating unit (superblock) of this family."""
+    if cfg.family == "hybrid":
+        return cfg.attn_every
+    if cfg.family == "ssm":
+        return cfg.slstm_every
+    if cfg.is_moe_arch and cfg.moe_interleave > 1:
+        return cfg.moe_interleave
+    return 1
+
+
+def _with_units(cfg, units: int):
+    """Shrink the config to `units` repeating units (probe size)."""
+    return cfg.replace(n_layers=_pattern_len(cfg) * units)
+
+
+def fake_device() -> str:
+    """The fake tensors' device: the card's where torch has CUDA built in."""
+    return "cuda" if torch.backends.cuda.is_built() else "cpu"
+
+
+def _local_batch(batch: Dict[str, Any], mesh, seq_shard: bool) -> Dict[str, Any]:
+    """The card's share of a batch of ShapeDtype records."""
+    return {k: s._replace(shape=shd.local_shape(s.shape, shd.batch_leaf_spec(s.shape, s.dtype, mesh, seq_shard),
+                                                mesh))
+            for k, s in batch.items()}
+
+
+@contextlib.contextmanager
+def _one_draw_per_leaf(counter: hlo.StepCounter):
+    """The sketch projects a large leaf through one Rademacher block of
+    2**16 rows after another (``core.sketch.projection_blocks``), each a
+    threefry hash of ~200 aten ops: thousands of blocks a step, which fake
+    tensors would replay one op at a time. Here the first block of a leaf
+    is drawn (its temporaries and traffic counted as they come) and stands
+    for the others, whose draws add the first one's bytes; every block's
+    product with the leaf is still dispatched and counted."""
+    orig = sketch.projection_blocks
+
+    def blocks(n, d_sketch, seed, device):
+        before = counter.bytes_accessed
+        first = next(iter(orig(n, d_sketch, seed, device)))
+        per = counter.bytes_accessed - before
+        yield first
+        for _ in range(sketch.n_blocks(n) - 1):
+            counter.bytes_accessed += per
+            yield first
+
+    sketch.projection_blocks = blocks
+    try:
+        yield
+    finally:
+        sketch.projection_blocks = orig
+
+
+def probe_step(cfg, kind: str, batch: Dict[str, Any], step_cfg: StepConfig, central: bool = False,
+               n_clients: int = TRAIN_CLIENTS, cache_len: int = 0) -> hlo.StepCounts:
+    """One step of ``cfg`` on fake tensors of the card (``batch``: the
+    card's ShapeDtype inputs): its FLOPs, bytes and peak live bytes, the
+    step's state and inputs registered as external."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dev = fake_device()
+    model = build_model(cfg)
+    shapes = model.init_shapes()  # meta tensors, made outside the fake mode
+    with FakeTensorMode():
+        params = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype, device=dev), shapes)
+        inputs = {k: s.empty(dev) for k, s in batch.items()}
+        external = leaves(params) + list(inputs.values())
+        if kind == "train":
+            opt = yogi_init(params)
+            clust = {"centroids": torch.zeros((step_cfg.cluster_k, step_cfg.d_sketch), device=dev),
+                     "counts": torch.zeros((step_cfg.cluster_k,), device=dev),
+                     "initialized": torch.zeros((), device=dev)}
+            external += leaves(opt["m"]) + leaves(opt["v"]) + list(clust.values())
+            step = (make_central_train_step(model, step_cfg, n_clients=n_clients) if central
+                    else make_train_step(model, step_cfg))
+            fn = lambda: step(params, opt, clust, inputs)  # noqa: E731
+        elif kind == "prefill":
+            fn = lambda: make_prefill_step(model, step_cfg)(params, inputs)  # noqa: E731
+        else:
+            B = inputs["tokens"].shape[0]
+            cache = model.init_cache(B, cache_len, torch.bfloat16, device=dev)
+            external += leaves(cache)
+            fn = lambda: make_serve_step(model, step_cfg)(params, cache, inputs)  # noqa: E731
+        counter = hlo.StepCounter()
+        with _one_draw_per_leaf(counter):
+            return hlo.count_step(fn, external, counter)
+
+
+def _extrap(a1: float, a2: float, n_units: float) -> float:
+    per_unit = max(a2 - a1, 0.0)
+    base = max(a1 - per_unit, 0.0)
+    return base + per_unit * n_units
+
+
+def plan_step(cfg, kind: str, batch: Dict[str, Any], mesh, policy: str, step_cfg: StepConfig,
+              n_clients: int = TRAIN_CLIENTS, cache_len: int = 0, seq_shard_cache: bool = False
+              ) -> Dict[str, Any]:
+    """The per-card plan of one step of ``cfg`` (full depth) on ``mesh``:
+    ``batch`` is the whole batch (ShapeDtype records) and the card takes
+    its share. A train step under ``fsdp`` is the centralized step, as in
+    the reference's dry run."""
+    central = kind == "train" and policy == "fsdp"
+    local = _local_batch(batch, mesh, seq_shard=policy == "dp")
+    if central:
+        n_clients = max(1, n_clients // data_size(mesh))
+    shapes = build_model(cfg).init_shapes()
+    state = {"params": shd.per_card_bytes(shapes, mesh, policy)}
+    if kind == "train":
+        opt = yogi_init(shapes)
+        state["optimizer"] = sum(shd.per_card_bytes(v, mesh, "fsdp") for v in opt.values())
+        state["clustering"] = 4 * step_cfg.cluster_k * (step_cfg.d_sketch + 1) + 4
+    if kind == "decode":
+        B = next(iter(batch.values())).shape[0]
+        cache = build_model(cfg).init_cache(B, cache_len, torch.bfloat16, device="meta")
+        state["cache"] = shd.cache_bytes(cache, B, mesh, seq_shard_cache)
+    input_bytes = sum(math.prod(s.shape) * s.empty().element_size() for s in local.values())
+
+    plen = _pattern_len(cfg)
+    n_units = cfg.n_layers / plen
+    t0 = time.time()
+    c1, c2 = (probe_step(_with_units(cfg, u), kind, local, step_cfg, central, n_clients, cache_len)
+              for u in (1, 2))
+    probe_s = time.time() - t0
+    step_peak = _extrap(c1.step_peak_bytes, c2.step_peak_bytes, n_units)
+    msize = model_size(mesh)
+    roof = hlo.Roofline(
+        flops=_extrap(c1.flops, c2.flops, n_units) / msize,
+        bytes_accessed=_extrap(c1.bytes_accessed, c2.bytes_accessed, n_units) / msize,
+        coll_bytes=None, coll_by_op=None, peak_flops=hlo.peak_flops(cfg.dtype),
+        collectives=NO_COLLECTIVES,
+    )
+    state_bytes = sum(state.values())
+    plan = state_bytes + input_bytes + step_peak
+    return {
+        "step": "central_train" if central else ("federated_train" if kind == "train" else kind),
+        "local_batch": {k: list(s.shape) for k, s in local.items()},
+        "state_bytes": state_bytes,
+        "state_by_part": state,
+        "input_bytes": input_bytes,
+        "step_peak_bytes": step_peak,
+        "step_peak_note": ("upper bound under tp and fsdp: the probe splits nothing over 'model' and "
+                           "keeps whole client deltas" if policy in ("tp", "fsdp") else ""),
+        "plan_bytes": plan,
+        "fits": plan <= hlo.HBM_BYTES,
+        "hbm_bytes": hlo.HBM_BYTES,
+        "probes": {"units": [1, 2], "n_units": n_units, "step_peak_bytes": [c1.step_peak_bytes, c2.step_peak_bytes],
+                   "flops": [c1.flops, c2.flops], "bytes": [c1.bytes_accessed, c2.bytes_accessed],
+                   "seconds": probe_s},
+        "flops_probe": _extrap(c1.flops, c2.flops, n_units),
+        "per_device_note": f"the probe's FLOPs and bytes divided evenly over the model axis ({msize})",
+        "roofline": roof.as_dict(),
+    }
+
+
+def lower_one(arch: str, shape_name: str, multi_pod: bool, policy_override=None,
+              step_cfg: StepConfig = None, extra_tag: str = "", cfg_overrides: dict = None,
+              seq_shard_cache: bool = False) -> Dict[str, Any]:
+    """Plan one (arch, shape, mesh) and return the report dict."""
+    t0 = time.time()
+    cfg0 = get_config(arch)
+    shape = SHAPES[shape_name]
+    cfg = effective_config(cfg0, shape).replace(dtype=torch.bfloat16)
+    if cfg_overrides:
+        cfg = cfg.replace(**cfg_overrides)
+    init_fake_world(512 if multi_pod else 256)
+    mesh = make_production_mesh(multi_pod=multi_pod, device_type=fake_device())
+    policy = policy_override or ("fsdp" if arch in FSDP_ARCHS else "tp")
+    step_cfg = step_cfg or StepConfig()
+    if shape.kind == "train" and policy == "fsdp":
+        batch = flat_batch_specs(cfg, shape)  # the centralized step takes the flat (B, S) batch
+    else:
+        batch = input_specs(cfg0, shape.name)
+    plan = plan_step(cfg, shape.kind, batch, mesh, policy, step_cfg, cache_len=shape.seq_len,
+                     seq_shard_cache=seq_shard_cache)
+
+    model = build_model(cfg)
+    n_params = model.param_count()
+    n_active = model.active_param_count()
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    mult = 6 if shape.kind == "train" else 2
+    model_flops = mult * n_active * tokens
+    flops_global = plan["flops_probe"] * data_size(mesh)
+    return {
+        "arch": arch,
+        "shape": shape_name,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "policy": policy,
+        "kind": shape.kind,
+        "variant": "sliding_window" if cfg.sliding_window and not cfg0.sliding_window else "native",
+        "overrides": cfg_overrides or {},
+        "tag": extra_tag,
+        "accum_steps": step_cfg.accum_steps,
+        "device": "NVIDIA H100 80GB HBM3 (planned; nothing runs on a card)",
+        "params": n_params,
+        "active_params": n_active,
+        "tokens": tokens,
+        "model_flops": model_flops,
+        "flops_global": flops_global,
+        "useful_flops_ratio": model_flops / flops_global if flops_global else 0.0,
+        "memory": {k: plan[k] for k in ("state_bytes", "state_by_part", "input_bytes", "step_peak_bytes",
+                                        "step_peak_note", "plan_bytes", "fits", "hbm_bytes")},
+        "fits": plan["fits"],
+        "step": plan["step"],
+        "local_batch": plan["local_batch"],
+        "probes": plan["probes"],
+        "per_device_note": plan["per_device_note"],
+        "roofline": plan["roofline"],
+        "roofline_extrapolated": True,
+        "plan_s": time.time() - t0,
+    }
+
+
+def _fmt_ms(s: Optional[float]) -> str:
+    return "    null" if s is None else f"{s * 1e3:8.2f}"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--policy", default=None, choices=[None, "tp", "fsdp", "ep", "dp"])
+    ap.add_argument("--accum", type=int, default=1,
+                    help="gradient-accumulation microbatches (centralized mode; no step reads it yet)")
+    ap.add_argument("--cache-seq-shard", action="store_true",
+                    help="shard decode caches over the sequence (flash-decode)")
+    ap.add_argument("--set", action="append", default=[],
+                    help="config overrides, e.g. --set vocab_pad=49168")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out", default=str(OUT_DIR))
+    args = ap.parse_args(argv)
+
+    archs = ARCH_IDS if args.all or args.arch is None else [args.arch]
+    shapes = list(SHAPES) if args.all or args.shape is None else [args.shape]
+    meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
+    outdir = Path(args.out)
+    outdir.mkdir(parents=True, exist_ok=True)
+
+    failures = []
+    for arch in archs:
+        arch = arch.replace("_", "-") if "-" not in arch else arch
+        for shape in shapes:
+            for multi in meshes:
+                mesh_tag = "2x16x16" if multi else "16x16"
+                name = f"{arch}__{shape}__{mesh_tag}" + (f"__{args.tag}" if args.tag else "")
+                step_cfg = StepConfig(accum_steps=args.accum) if args.accum != 1 else None
+                overrides = {}
+                for kv in args.set:
+                    k, v = kv.split("=", 1)
+                    overrides[k] = v if not v.lstrip("-").isdigit() else int(v)
+                try:
+                    rep = lower_one(arch, shape, multi, args.policy, step_cfg=step_cfg,
+                                    extra_tag=args.tag, cfg_overrides=overrides or None,
+                                    seq_shard_cache=args.cache_seq_shard)
+                    (outdir / f"{name}.json").write_text(json.dumps(rep, indent=2))
+                    r, m = rep["roofline"], rep["memory"]
+                    print(
+                        f"OK  {name:60s} compute={_fmt_ms(r['compute_s'])}ms "
+                        f"memory={_fmt_ms(r['memory_s'])}ms coll={_fmt_ms(r['collective_s'])}ms "
+                        f"bottleneck={r['bottleneck']:10s} plan={m['plan_bytes'] / 1e9:7.2f}GB "
+                        f"fits={m['fits']} ({rep['plan_s']:.0f}s)",
+                        flush=True,
+                    )
+                except Exception as e:  # noqa: BLE001
+                    failures.append((name, repr(e)))
+                    print(f"FAIL {name}: {e}", flush=True)
+                    traceback.print_exc()
+    if failures:
+        print(f"\n{len(failures)} failures:")
+        for n, e in failures:
+            print(" ", n, e)
+        raise SystemExit(1)
+    print("\nall dry-runs passed")
+
+
+if __name__ == "__main__":
+    main()

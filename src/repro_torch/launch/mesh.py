@@ -1,5 +1,16 @@
-"""The FL engine's cohort mesh (port of ``repro.launch.mesh``'s
-``make_cohort_mesh`` and ``cohort_size``).
+"""Mesh construction (port of ``repro.launch.mesh``).
+
+Two mesh families, as in the reference:
+
+- ``make_production_mesh``: the launch mesh, a ``torch.distributed``
+  ``DeviceMesh`` of (data=16, model=16), or (pod=2, data=16, model=16) for
+  two pods, built on the initialized process group. On this port's target
+  (H100 cards) no run has had 256 cards: the dry run builds it on the
+  fake process group (``init_fake_world``), where nothing is allocated.
+  ``data_axes``, ``data_size`` and ``model_size`` read any mesh-like object
+  with axis names and sizes: a ``DeviceMesh`` or a record with
+  ``axis_names`` and a ``shape`` dict.
+- ``make_cohort_mesh``: the FL engine's cohort mesh, below.
 
 A cohort mesh is an explicit, ordered tuple of ``torch.device``s, one per
 cohort shard: shard j owns the CohortBank's slot block j and the round's
@@ -13,7 +24,8 @@ the reference raises when the host has fewer jax devices).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -77,3 +89,76 @@ def make_cohort_mesh(n_shards: int, *, devices: Optional[Sequence] = None,
 def cohort_size(mesh) -> int:
     """Number of cohort shards (1 without a mesh)."""
     return 1 if mesh is None else mesh.n_shards
+
+
+# ---------------------------------------------------------------------------
+# The production (launch) mesh
+# ---------------------------------------------------------------------------
+def init_fake_world(world_size: int) -> None:
+    """Initialize the fake process group of ``world_size`` ranks (this
+    process is rank 0; no collective moves data), the process group a dry
+    run plans on. A fake group of another size is replaced; any other
+    initialized group raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group is initialized; the dry run needs the fake one")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` on the initialized
+    process group, whose world size must be the mesh's size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {shape} mesh needs an initialized process group of {n} ranks "
+                           "(init_fake_world for a dry run)")
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks, the process group has "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
+
+
+class MeshAxes(NamedTuple):
+    """A mesh's axis names and sizes, without devices or a process group:
+    all that the specs of ``launch.sharding`` read."""
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or of a record with
+    ``axis_names`` and a ``shape`` dict."""
+    names = getattr(mesh, "axis_names", None) or mesh.mesh_dim_names
+    shape = mesh.shape
+    if isinstance(shape, dict):
+        return {a: int(shape[a]) for a in names}
+    return dict(zip(names, (int(n) for n in shape)))
+
+
+def data_axes(mesh) -> tuple:
+    """The axes the batch/client dimension shards over."""
+    return ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)
+
+
+def data_size(mesh) -> int:
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in data_axes(mesh) if a in sizes)
+
+
+def model_size(mesh) -> int:
+    return axis_sizes(mesh).get("model", 1)

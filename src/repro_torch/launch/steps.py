@@ -78,7 +78,9 @@ def clustering_update(state, sketches: torch.Tensor, ema: float = 0.3):
     # rows (the JAX package's stand-in for k-means++ inside its jit)
     sims_all = xn @ xn.T
     seed0 = torch.argmax(torch.sum(sims_all, dim=1))
-    seed1 = torch.argmin(sims_all[seed0])
+    # a tensor index, not a Python one: no host read, and it runs on fake
+    # tensors (the dry run's FakeTensorMode)
+    seed1 = torch.argmin(torch.index_select(sims_all, 0, seed0[None])[0])
     boot = xn[torch.stack([seed0, seed1] + [(seed0 + i) % C for i in range(2, k)])]
     cents = torch.where(state["initialized"] > 0, state["centroids"], boot)
 
@@ -231,6 +233,7 @@ class StepConfig:
     client_lr: float = 0.02
     server_lr: float = 0.02
     clip_norm: float = 1.0  # client-side gradient clipping (0 = off)
+    accum_steps: int = 1  # centralized mode: gradient-accumulation microbatches (no step reads it)
     cluster_k: int = 2
     d_sketch: int = 256
     window: int = -1  # attention window override (-1 = config default)
@@ -381,8 +384,9 @@ def jit_train_step(step_fn: Callable) -> Callable:
     carried state donated, so an async driver holds one live copy of params,
     optimizer and clustering state. The port's steps already run eagerly
     and update the carried params and optimizer state in place, which is
-    what donation buys; placement over several devices (the JAX package's
-    shardings) is a later port slice."""
+    what donation buys. The JAX package's shardings have their port in
+    ``launch.sharding`` (specs and DTensor placements, and the dry run's
+    per-card plan); the steps themselves run on one device."""
     return step_fn
 
 

@@ -1,6 +1,12 @@
-"""Single-device training driver: the Auxo federated LM round step
+"""Training driver: the Auxo federated LM round step
 (``launch.steps.make_train_step``) on one device (port of
-``repro.launch.train``, without its mesh and shardings).
+``repro.launch.train``).
+
+The reference places params (``tp``) and the optimizer state (``fsdp``) on
+an (n_dev, 1) ("data", "model") mesh; this driver builds the same
+placement (``launch.sharding.param_shardings``) for the one device it
+trains on, where every spec is replicated. Multi-card execution is not
+ported: the step runs on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --d-model 512 --layers 8 --rounds 100 --checkpoint-every 50
@@ -30,12 +36,16 @@ from repro_torch import random as rnd
 from repro_torch import resolve_device
 from repro_torch.checkpoint import load_pytree, save_pytree
 from repro_torch.configs import get_config
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import MeshAxes
 from repro_torch.launch.steps import StepConfig, clustering_init, make_train_step, yogi_init
 from repro_torch.models import build_model
+from repro_torch.utils.tree import leaves
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        description="Federated LM rounds on one device (multi-card execution is not ported).")
     ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--layers", type=int, default=4)
@@ -80,6 +90,18 @@ def main(argv=None):
         opt = load_pytree(ckpt / "opt.npz", opt)
         clust = load_pytree(ckpt / "clust.npz", clust)
         print("resumed from", ckpt)
+
+    # the reference's (n_dev, 1) placement, for the one device this trains
+    # on: DTensor placements per leaf, and what one card holds under them
+    mesh = MeshAxes(("data", "model"), {"data": 1, "model": 1})
+    placement = {"params": shd.param_shardings(params, mesh, "tp"),
+                 "opt": {k: shd.param_shardings(v, mesh, "fsdp") for k, v in opt.items()}}
+    per_card = shd.per_card_bytes(params, mesh, "tp") + sum(
+        shd.per_card_bytes(v, mesh, "fsdp") for v in opt.values())
+    total = sum(a.numel() * a.element_size() for a in leaves(params) + leaves(opt["m"]) + leaves(opt["v"]))
+    print(f"placement on a (1, 1) (data, model) mesh: {len(leaves(placement['params']))} param leaves, "
+          f"{per_card / 1e6:.1f} of {total / 1e6:.1f} MB of params and optimizer state on the card "
+          f"(multi-card execution is not ported)")
 
     rng = np.random.default_rng(0)
     m = 2

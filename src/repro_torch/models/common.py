@@ -201,8 +201,9 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections
     angles_all = positions[..., None].float() * freqs  # (..., 3, S, hd/2)
     # each channel's angle from its section's stream (the JAX package's
     # one-hot product picks the same values)
-    sec_ids = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                      torch.tensor(sections, device=x.device))
+    # (built on the host: a repeat count held in a tensor would make the
+    # output's length data-dependent, which fake tensors cannot give)
+    sec_ids = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)], device=x.device)
     angles = angles_all.movedim(-3, -1)[..., torch.arange(hd // 2, device=x.device), sec_ids]
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]

@@ -40,6 +40,16 @@ def leaves_with_path(tree: Tree, prefix: str = "") -> List[Tuple[str, torch.Tens
     return out
 
 
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """``fn(JAX key path, leaf)`` over a tree of nested dicts (and lists,
+    as ``[i]``), keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], f"{prefix}['{k}']") for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, f"{prefix}[{i}]") for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
 def leaves(tree: Tree) -> List[torch.Tensor]:
     """The leaves in JAX's flattening order."""
     return [v for _, v in leaves_with_path(tree)]
@@ -69,3 +79,21 @@ def tree_dot(a: Tree, b: Tree, batch_dims: int = 0) -> torch.Tensor:
 
 def tree_zeros_like(a: Tree) -> Tree:
     return tree_map(torch.zeros_like, a)
+
+
+def tree_norm(a: Tree) -> torch.Tensor:
+    return torch.sqrt(tree_dot(a, a))
+
+
+def tree_size(a: Tree) -> int:
+    """Total number of scalar parameters in a tree."""
+    return sum(x.numel() for x in leaves(a))
+
+
+def tree_bytes(a: Tree) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves(a))
+
+
+def tree_cast(a: Tree, dtype: torch.dtype) -> Tree:
+    """Floating leaves cast to ``dtype``; integer and bool leaves kept."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, a)

@@ -1,0 +1,174 @@
+"""The port's dry run (``repro_torch.launch.dryrun``, ``repro_torch.utils.hlo``)
+on the CPU: the roofline at the H100's constants and the collective sums
+against the JAX package's ``tests/test_hlo.py`` sample, the tree helpers
+against the JAX package's, and a mini dry run of reduced granite,
+qwen3-moe and zamba2 on a (2, 2) mesh of the fake process group, every
+step on fake tensors. Also: ``clustering_update`` keeps its bits after it
+stopped indexing with a tensor scalar, and a fake CUDA tensor takes the
+kernels' shape rules, never a launch or a plain version."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun, steps
+from repro_torch.launch import mesh as lmesh
+from repro_torch.launch.specs import SDS
+from repro_torch.utils import hlo
+from repro_torch.utils import tree as ttree
+
+# tests/test_hlo.py's SAMPLE, as recorded collectives (op, per-card shape, dtype)
+RECORDS = [("all-reduce", (1024, 2048), torch.bfloat16), ("all-gather", (64, 512), torch.float32),
+           ("all-to-all", (8, 128), torch.bfloat16), ("collective-permute", (16, 16), torch.float32),
+           ("reduce-scatter", (32, 32), torch.float32)]
+
+
+def test_collective_bytes_match_the_reference_sample():
+    from test_hlo import SAMPLE
+
+    from repro.utils.hlo import collective_bytes as jax_collective_bytes
+
+    assert hlo.collective_bytes(RECORDS) == jax_collective_bytes(SAMPLE)
+    # a tuple-shaped all-gather is two records
+    tup = hlo.collective_bytes([("all-gather", (4, 4), torch.bfloat16), ("all-gather", (2, 2), torch.float32)])
+    assert tup["all-gather"] == 4 * 4 * 2 + 2 * 2 * 4
+
+
+def test_roofline_terms_and_bottleneck_at_h100_constants():
+    r = hlo.Roofline(flops=hlo.PEAK_FLOPS, bytes_accessed=0.0, coll_bytes=0.0, coll_by_op={})
+    assert r.compute_s == 1.0 and r.bottleneck == "compute"
+    r2 = hlo.Roofline(flops=0.0, bytes_accessed=3.35e12 * 2, coll_bytes=0.0, coll_by_op={})
+    assert r2.memory_s == 2.0 and r2.bottleneck == "memory"
+    r3 = hlo.Roofline(flops=0.0, bytes_accessed=0.0, coll_bytes=900e9 * 3, coll_by_op={})
+    assert r3.collective_s == 3.0 and r3.bottleneck == "collective"
+    assert hlo.peak_flops(torch.bfloat16) == 989e12 and hlo.peak_flops(torch.float32) == 67e12
+    # collectives not measured: null with its reason, the bottleneck over the measured terms
+    r4 = hlo.Roofline(flops=67e12, bytes_accessed=3.35e12 * 2, coll_bytes=None, coll_by_op=None,
+                      peak_flops=hlo.PEAK_FLOPS_F32, collectives="not measured: why")
+    d = r4.as_dict()
+    assert d["collective_s"] is None and d["collectives"] == "not measured: why"
+    assert d["compute_s"] == 1.0 and d["bottleneck"] == "memory"
+
+
+def test_tree_helpers_match_the_reference():
+    import jax.numpy as jnp
+
+    from repro.utils import tree as jtree
+
+    rng = np.random.default_rng(0)
+    arrays = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+              "b": {"c": rng.standard_normal(5).astype(np.float32), "n": np.arange(6, dtype=np.int32)}}
+    jt = {"a": jnp.asarray(arrays["a"]), "b": {"c": jnp.asarray(arrays["b"]["c"]), "n": jnp.asarray(arrays["b"]["n"])}}
+    tt = ttree.tree_map(torch.from_numpy, arrays)
+    floats = {"a": tt["a"], "b": {"c": tt["b"]["c"]}}
+    jfloats = {"a": jt["a"], "b": {"c": jt["b"]["c"]}}
+    np.testing.assert_allclose(float(ttree.tree_norm(floats)), float(jtree.tree_norm(jfloats)), rtol=1e-6)
+    assert ttree.tree_size(tt) == jtree.tree_size(jt) == 23
+    assert ttree.tree_bytes(tt) == jtree.tree_bytes(jt) == 23 * 4
+    cast, jcast = ttree.tree_cast(tt, torch.bfloat16), jtree.tree_cast(jt, jnp.bfloat16)
+    for (path, got), want in zip(ttree.leaves_with_path(cast), [jcast["a"], jcast["b"]["c"], jcast["b"]["n"]]):
+        assert str(got.dtype).split(".")[-1] == str(want.dtype), path  # floats only: int32 stays
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+# ------------------------------------------------ the mini dry run
+@pytest.fixture(scope="module")
+def mesh22():
+    import torch.distributed as dist
+
+    lmesh.init_fake_world(4)
+    yield lmesh.make_mesh((2, 2), ("data", "model"), dryrun.fake_device())
+    dist.destroy_process_group()
+
+
+def _mini_cfg(arch):
+    """tests/test_dryrun_mini.py's reduced configs (larger attention and CE
+    chunks: fewer ops to replay on fake tensors)."""
+    cfg = reduce_config(get_config(arch)).replace(dtype=torch.bfloat16, d_model=256, n_heads=8,
+                                                  n_kv_heads=4, attn_qchunk=16, ce_chunk=32)
+    return cfg.replace(ssm_heads=8) if cfg.family == "hybrid" else cfg
+
+
+MINI_BATCH = {"tokens": SDS((4, 2, 32), torch.int32)}
+MINI_STEP = steps.StepConfig(d_sketch=32)
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b", "zamba2_7b"])
+def test_mini_dry_run_plans_train_and_serve(mesh22, arch):
+    cfg = _mini_cfg(arch)
+    plan = dryrun.plan_step(cfg, "train", MINI_BATCH, mesh22, "tp", MINI_STEP)
+    assert plan["step"] == "federated_train" and plan["local_batch"] == {"tokens": [2, 2, 32]}
+    assert plan["flops_probe"] > 0 and plan["roofline"]["flops_per_device"] > 0
+    assert plan["plan_bytes"] >= plan["state_bytes"] > 0 and plan["step_peak_bytes"] > 0
+    assert plan["fits"]
+    roof = plan["roofline"]
+    assert roof["collective_s"] is None and roof["coll_bytes_per_device"] is None
+    assert roof["collectives"].startswith("not measured") and roof["bottleneck"] in ("compute", "memory")
+    serve = dryrun.plan_step(cfg, "decode", {"tokens": SDS((8, 1), torch.int32)}, mesh22, "tp", MINI_STEP,
+                             cache_len=64)
+    assert serve["state_by_part"]["cache"] > 0 and serve["plan_bytes"] >= serve["state_bytes"]
+    assert serve["flops_probe"] > 0
+
+
+def test_extrapolation_equals_a_direct_three_unit_count(mesh22):
+    """granite's 1- and 2-unit probes, extrapolated to 3 units, give the
+    FLOPs and the step peak of a 3-unit probe."""
+    cfg = _mini_cfg("granite_3_2b")
+    plan = dryrun.plan_step(cfg.replace(n_layers=3), "train", MINI_BATCH, mesh22, "tp", MINI_STEP)
+    local = dryrun._local_batch(MINI_BATCH, mesh22, seq_shard=False)
+    direct = dryrun.probe_step(dryrun._with_units(cfg, 3), "train", local, MINI_STEP)
+    assert plan["probes"]["n_units"] == 3
+    assert plan["flops_probe"] == direct.flops
+    assert plan["step_peak_bytes"] == direct.step_peak_bytes
+
+
+# ------------------------------------------------ the step and the kernels
+@pytest.mark.parametrize("C, d, k", [(8, 32, 2), (33, 128, 4), (5, 16, 3)])
+def test_clustering_update_keeps_its_bits(monkeypatch, C, d, k):
+    """The bootstrap's row of seed0 is read by ``index_select`` (fake
+    tensors cannot give the host read that ``sims_all[seed0]``, a
+    tensor-scalar index, makes); both forms give the same bits."""
+    g = torch.Generator().manual_seed(C + d)
+    sketches = torch.randn(C, d, generator=g)
+    state = steps.clustering_init(k, d, device="cpu")
+    after = steps.clustering_update(state, sketches)
+    index_select = torch.index_select
+    monkeypatch.setattr(torch, "index_select", lambda t, dim, i: t[i[0]][None])  # sims_all[seed0]
+    before = steps.clustering_update(state, sketches)
+    monkeypatch.setattr(torch, "index_select", index_select)
+    for x, y in zip(ttree.leaves(after[0]) + ttree.leaves(after[1]), ttree.leaves(before[0]) + ttree.leaves(before[1])):
+        assert torch.equal(x, y)
+    # and the later rounds, which keep their centroids
+    again = steps.clustering_update(after[0], sketches.flip(0))
+    assert torch.isfinite(again[0]["centroids"]).all()
+
+
+def test_fake_cuda_tensors_take_the_kernels_shape_rules(monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
+
+    from repro_torch.kernels import build, ref
+
+    def boom(*a, **k):
+        raise AssertionError("a fake tensor reached a launch or a plain version")
+
+    for name in ("segment_aggregate", "cosine_similarity", "decode_attention"):
+        monkeypatch.setattr(ref, name, boom)
+    monkeypatch.setattr(build, "launch", boom)
+    monkeypatch.setattr(build, "library", boom)
+    with FakeTensorMode():
+        x = torch.empty(3, 50, 70, device="cuda", dtype=torch.bfloat16)
+        ids = torch.zeros(3, 50, dtype=torch.int32, device="cuda")
+        w = torch.empty(3, 50, device="cuda")
+        outs = [(ops.segment_aggregate(x, ids, 5, w), (3, 5, 70), torch.float32),
+                (ops.segment_aggregate(x.select(0, 0), ids.select(0, 0), 5), (5, 70), torch.float32),
+                (ops.cosine_similarity(x, torch.empty(3, 4, 70, device="cuda", dtype=torch.bfloat16)),
+                 (3, 50, 4), torch.float32)]
+        q, kv = torch.empty(2, 8, 64, device="cuda"), torch.empty(2, 128, 2, 64, device="cuda")
+        n = torch.full((2,), 5, dtype=torch.int32, device="cuda")
+        outs.append((ops.decode_attention(q, kv, kv, n), (2, 8, 64), torch.float32))
+        outs.append((ops.decode_attention(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), n), (2, 8, 64),
+                     torch.bfloat16))
+    for out, shape, dtype in outs:
+        assert is_fake(out) and out.device.type == "cuda"
+        assert tuple(out.shape) == shape and out.dtype == dtype

@@ -8,10 +8,11 @@ The CUDA kernels cannot run here; these emulations repeat what each one
 adds to what, and in which order, so that a change of order that leaves
 the JAX tolerances is caught on the CPU:
   - segment sum: a stable sort of each 256-row chunk by segment; each
-    segment's rows added in index order, one after another; chunks add in
-    chunk order, slices (P split over the blocks of a cluster) in slice
-    order; narrow rows (D < 32) sum each segment per warp by a butterfly
-    over the lanes, then the warps in order;
+    segment's rows added in index order, one after another, onto the
+    running sum the earlier chunks left (+0 before the first), for every
+    D; a split hands each block a group of segments over all rows. That is
+    the plain version's order (``index_add_``), so the emulation is held
+    bit-equal to it wherever a segment's rows sit;
   - cosine, K <= 8: per-lane partials of |x|^2, the dots and the
     centroid norms over 16-byte vectors of D, reduced by a butterfly over
     the 32 lanes (the interleaved reduction gives each slot that order);
@@ -79,40 +80,15 @@ def _butterfly(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0]
 
 
-def _narrow(x, key, w, K):
-    """D < 32: one thread a row, chunks of a block's rows; per warp a
-    butterfly over its lanes of each segment's masked values, the warps in
-    order, the chunks in order."""
-    P, D = x.shape
-    T = CHUNK if P >= CHUNK else max(32, math.ceil(P / 32) * 32)
-    out = torch.zeros(K, D)
-    for c0 in range(0, P, T):
-        n = min(P, c0 + T) - c0
-        v = torch.zeros(T, D)
-        k = torch.full((T,), K)
-        v[:n] = w[c0:c0 + n, None] * x[c0:c0 + n]  # rounded before the add
-        k[:n] = key[c0:c0 + n]
-        m = torch.where(k[:, None, None] == torch.arange(K)[None, :, None], v[:, None, :], 0.0)
-        per_warp = _butterfly(m.reshape(T // 32, 32, K, D).permute(0, 2, 3, 1))  # (warps, K, D)
-        tot = per_warp[0]
-        for u in range(1, T // 32):
-            tot = tot + per_warp[u]
-        out = tot if c0 == 0 else out + tot
-    return out
-
-
-def _chunk(x, key, w, K):
-    """One chunk of wide rows: {segment: its sum} in the kernel's order
-    (each segment's rows in index order, one after another)."""
-    sums = {}
-    for s in sorted(set(key[key < K].tolist())):
-        rows = torch.nonzero(key == s).flatten()
-        v = w[rows][:, None] * x[rows]  # rounded before the add, as __fmul_rn
-        tot = v[0]
-        for t in range(1, len(rows)):
-            tot = tot + v[t]
-        sums[s] = tot
-    return sums
+def _chunk(x, key, w, acc, s0, s1):
+    """One chunk of rows for the block of segments [s0, s1): the rows in
+    the stable sort's order (segment, then index), each added onto its
+    segment's running sum in ``acc`` (the earlier chunks' sum, +0 before
+    the first chunk); other segments' rows are dropped."""
+    for t in torch.argsort(key, stable=True).tolist():
+        s = int(key[t])
+        if s0 <= s < s1:
+            acc[s] = acc[s] + w[t] * x[t]  # the product rounded before the add, as __fmul_rn
 
 
 def emulate_segment(x, ids, K, w=None, sms=SMS):
@@ -122,23 +98,17 @@ def emulate_segment(x, ids, K, w=None, sms=SMS):
     P, D = x.shape
     w = torch.ones(P) if w is None else w.float()
     key = torch.where((ids >= 0) & (ids < K), ids.long(), torch.full_like(ids.long(), K))
-    if D < sa.NARROW_D:
-        return _narrow(x, key, w, K)
-    nsplit = sa.plan_splits(1, P, D, K, el, sms)
-    nch = math.ceil(P / CHUNK)
-    per = math.ceil(nch / nsplit) if nch else 1
-    slices = []
-    for sl in range(nsplit):
-        out = torch.zeros(K, D)
-        for c in range(sl * per, min(nch, (sl + 1) * per)):
-            rows = slice(c * CHUNK, min(P, (c + 1) * CHUNK))
-            for s, v in _chunk(x[rows], key[rows], w[rows], K).items():
-                out[s] = v if c == sl * per else out[s] + v
-        slices.append(out)
-    tot = slices[0]
-    for s in slices[1:]:
-        tot = tot + s
-    return tot
+    n = sa.plan_splits(1, P, D, K, el, sms)
+    out = torch.zeros(K, D)
+    for g in range(n):  # block g of the column tile: segments [g K / n, (g + 1) K / n)
+        for c0 in range(0, P, CHUNK):
+            rows = slice(c0, min(P, c0 + CHUNK))
+            _chunk(x[rows], key[rows], w[rows], out, g * K // n, (g + 1) * K // n)
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
 
 
 @pytest.mark.parametrize("shape", SEG_SHAPES)
@@ -165,14 +135,13 @@ def test_segment_order_matches_jax(jax_ops, shape, dname, weighted):
 @pytest.mark.parametrize("P, D, K, sms", [(1024, 256, 16, 132), (8192, 512, 32, 132),
                                           (2000, 64, 5, 132), (700, 48, 3, 4)])
 def test_segment_split_order_matches_plain(P, D, K, sms):
-    """P split over blocks (slices added in slice order) against the plain version."""
+    """Segments split over the blocks of a column tile: the plain version's bits."""
     assert sa.plan_splits(1, P, D, K, 4, sms) > 1
     g = torch.Generator().manual_seed(P + D)
     x = torch.randn(P, D, generator=g)
     ids = torch.randint(-1, K + 1, (P,), generator=g)
     w = torch.rand(P, generator=g)
-    torch.testing.assert_close(emulate_segment(x, ids, K, w, sms), ref.segment_aggregate(x, ids, K, w),
-                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(_bits(emulate_segment(x, ids, K, w, sms)), _bits(ref.segment_aggregate(x, ids, K, w)))
 
 
 @pytest.mark.parametrize("C, P, D, K, el", [(1, 125, 6922, 7, 4), (1, 125, 1, 7, 4),
@@ -184,21 +153,72 @@ def test_segment_main_path_takes_no_split(C, P, D, K, el):
     assert sa.plan_splits(C, P, D, K, el, SMS) == 1
 
 
-@pytest.mark.parametrize("K, el, split", [(32, 4, True), (384, 4, True), (385, 4, False),
-                                          (192, 2, True), (193, 2, False)])
-def test_segment_split_needs_the_tile_in_shared_memory(K, el, split):
-    """Slices of a cluster add their (K, columns) tiles through shared
-    memory: a tile over 48 KB keeps one block per column tile."""
-    assert (sa.plan_splits(1, 8192, 512, K, el, SMS) > 1) == split
+@pytest.mark.parametrize("C, P, D, K, el, want", [(1, 8192, 512, 32, 4, 8), (1, 8192, 512, 3, 4, 3),
+                                                  (1, 2000, 1, 1, 4, 1), (1, 600, 6922, 5, 4, 1),
+                                                  (2, 4096, 256, 16, 2, 8)])
+def test_segment_split_never_cuts_a_segment(C, P, D, K, el, want):
+    """A split hands whole segments to blocks: at most K groups (one segment
+    is never split), none when the column tiles fill a wave (D = 6922)."""
+    assert sa.plan_splits(C, P, D, K, el, SMS) == want
 
 
-def test_segment_plan_covers_every_chunk():
-    for P in (257, 1000, 4096, 8192, 100000):
-        for D in (32, 256, 512):
-            n = sa.plan_splits(1, P, D, 32, 4, SMS)
-            nch = math.ceil(P / CHUNK)
-            per = math.ceil(nch / n)
-            assert 1 <= n <= min(nch, sa.MAX_SPLIT) and (n - 1) * per < nch <= n * per
+def test_segment_plan_covers_every_segment():
+    for P in (1, 257, 1000, 4096, 100000):
+        for D in (1, 7, 32, 256, 512, 6922):
+            for K in (1, 2, 5, 32, 400):
+                n = sa.plan_splits(1, P, D, K, 4, SMS)
+                groups = [range(g * K // n, (g + 1) * K // n) for g in range(n)]
+                assert 1 <= n <= min(K, sa.MAX_SPLIT) and all(len(r) for r in groups)
+                assert [s for r in groups for s in r] == list(range(K))
+
+
+# one segment's 25 rows placed across a call: (C, P, block, first row).
+# Offsets 0 and 37, blocks 1 and 3 of a stacked call, and rows that
+# straddle the chunk boundaries at 256, 512 and 1024 (and 512 in block 3)
+PLACEMENTS = {"row0": (1, 75, 0, 0), "row37": (1, 75, 0, 37), "block1": (2, 75, 1, 11),
+              "block3": (4, 75, 3, 50), "straddle256": (1, 500, 0, 240),
+              "straddle512": (1, 600, 0, 500), "straddle1024": (1, 2000, 0, 1020),
+              "block3_straddle512": (4, 600, 3, 500)}
+LAYOUT_K, LAYOUT_ROWS = 5, 25
+
+
+def _placed(seg, wseg, C, P, blk, off, seed):
+    """A (C, P, D) call whose segment 0 holds exactly ``seg``'s rows at
+    [off, off + 25) of block ``blk``; the other rows belong to segments
+    1..K-1 or are dropped (-1)."""
+    g = torch.Generator().manual_seed(seed)
+    D = seg.shape[1]
+    data = torch.randn(C, P, D, generator=g).to(seg.dtype)
+    ids = torch.randint(-1, LAYOUT_K, (C, P), generator=g)
+    ids[ids == 0] = 1
+    w = torch.rand(C, P, generator=g)
+    data[blk, off:off + LAYOUT_ROWS] = seg
+    ids[blk, off:off + LAYOUT_ROWS] = 0
+    w[blk, off:off + LAYOUT_ROWS] = wseg
+    return data, ids, w
+
+
+@pytest.mark.parametrize("where", list(PLACEMENTS))
+@pytest.mark.parametrize("D", [1, 7, 6922])
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_row_order_is_layout_free(where, D, dname, weighted):
+    """The kernel's order gives the plain version's bits (``torch.equal`` on
+    the int32 views) on the whole call, and segment 0's sum has the same
+    bits wherever its rows sit."""
+    g = torch.Generator().manual_seed(D)
+    seg = torch.randn(LAYOUT_ROWS, D, generator=g).to(TORCH_DTYPES[dname])
+    wseg = torch.rand(LAYOUT_ROWS, generator=g)
+    C, P, blk, off = PLACEMENTS[where]
+    data, ids, w = _placed(seg, wseg, C, P, blk, off, seed=P + off)
+    wt = w if weighted else None
+    plain = ref.segment_aggregate(data, ids, LAYOUT_K, wt)
+    got = torch.stack([emulate_segment(data[c], ids[c], LAYOUT_K, None if wt is None else wt[c])
+                       for c in range(C)])
+    assert torch.equal(_bits(got), _bits(plain))
+    alone = ref.segment_aggregate(seg, torch.zeros(LAYOUT_ROWS, dtype=torch.long), 1,
+                                  wseg if weighted else None)[0]
+    assert torch.equal(_bits(got[blk, 0]), _bits(alone))
 
 
 @pytest.mark.parametrize("shape", [(80, 130, 8), (300, 1, 63), (125, 6922, 63), (600, 40, 3)])
