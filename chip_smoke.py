@@ -14,6 +14,7 @@
     python3 chip_smoke.py --ssm           # build + phase 14 alone
     python3 chip_smoke.py --placement     # build + a warm-up run + phase 15 alone
     python3 chip_smoke.py --launch        # build + phase 16 (its two steps run for their peaks)
+    python3 chip_smoke.py --spmd          # build + phase 16 + phase 17
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -131,7 +132,21 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      process group, a (1, 1) mesh and fake CUDA tensors: nothing is
      allocated) of phase 10b's granite-3-2b round and phase 13b's
      qwen3-moe central step, each beside the peak that phase measured;
-     a plan more than 10% below its peak fails.
+     a plan more than 10% below its peak fails; each records 0 collectives.
+ 17. the SPMD probe: (a) ``repro_torch.launch.profile`` of granite-3-2b
+     ``train_4k`` (tp) and qwen3-moe-235b-a22b ``train_4k`` (fsdp) on the
+     16 x 16 mesh of the fake process group with fake CUDA tensors (at most
+     1 MiB allocated on the card): one card's collective GB by op and the
+     top 20 collectives; (b) phase 16's two plans recorded 0 collectives on
+     (1, 1); (c) phase 10b's granite-3-2b round at full width (depth cut to
+     8 layers, so that the plan extrapolates from its 1-, 2- and 3-layer
+     probes) under tp as rank 0 of a (1, 4) fake world, with real local
+     shards on the card: the measured peak against the SPMD plan (plan /
+     measured >= 0.9), the recorded collectives equal to the fake-tensor
+     probe's (op, shape, dtype, count), both round kernels' launches
+     counted from 0, and every segment-kernel call on the local shards
+     bit-equal to the plain version on a CPU copy. The fake group moves no
+     data, so the round's loss is not held.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -3299,19 +3314,245 @@ def launch_phase(torch, card, measured: dict) -> dict:
         print(f"[launch] 16 {name} {p['step']} plan on a (1, 1) mesh: state {p['state_bytes'] / 1e9:.3f} GB "
               f"{({k: round(v / 1e9, 3) for k, v in p['state_by_part'].items()})} + inputs "
               f"{p['input_bytes'] / 1e9:.6f} GB + step peak {p['step_peak_bytes'] / 1e9:.3f} GB (probes "
-              f"{[round(b / 1e9, 3) for b in p['probes']['step_peak_bytes']]} GB at 1 and 2 units, "
+              f"{[round(b / 1e9, 3) for b in p['probes']['step_peak_bytes']]} GB at {p['probes']['units']} units, "
               f"{p['probes']['n_units']:g} units, {p['probes']['seconds']:.1f} s) = {gb:.3f} GB; measured "
               f"on the card {measured[name]:.3f} GB ({card}): plan / measured {ratio:.4f}; FLOPs "
               f"{p['flops_probe'] / 1e12:.3f} T, bytes {p['roofline']['bytes_per_device'] / 1e12:.3f} TB, "
               f"compute {p['roofline']['compute_s']:.4f} s, memory {p['roofline']['memory_s']:.4f} s, "
-              f"bottleneck {p['roofline']['bottleneck']}, collectives null", flush=True)
+              f"bottleneck {p['roofline']['bottleneck']}, collectives {p['probes']['n_collectives']} "
+              f"recorded at {p['probes']['units']} units", flush=True)
+        if any(p["probes"]["n_collectives"]):
+            raise AssertionError(f"16 {name}: a (1, 1) plan recorded collectives")
         if ratio < PLAN_GATE:
             raise AssertionError(f"16 {name}: the plan {gb:.3f} GB is more than 10% below the measured "
                                  f"peak {measured[name]:.3f} GB")
     secs = time.perf_counter() - t_phase
     print(f"[launch] phase 16 took {secs:.1f} s", flush=True)
     out["seconds"] = secs
+    out["plans"] = plans
     return out
+
+
+# ------------------------------------------- phase 17: the SPMD probe
+SPMD_UNITS = 2  # repeating units in 17a's profiles (the reference profiler's default)
+SPMD_TOP = 20
+SPMD_LAYERS = 8  # 17c's depth: full width, 8 of granite's 40 layers (the plan probes 1, 2 and 3)
+SPMD_WORLD = (1, 4)  # 17c's (data, model) fake world; this process is rank 0
+
+
+def spmd_profiles(torch) -> dict:
+    """17a: the collective profile of granite-3-2b ``train_4k`` (tp) and
+    qwen3-moe-235b-a22b ``train_4k`` (fsdp) on the 16 x 16 fake mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import profile
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = {}
+    try:
+        for arch in (GRANITE, QWEN3_MOE):
+            rep = profile.profile(arch, "train_4k", units=SPMD_UNITS, top=SPMD_TOP)
+            if rep["by_op"]["total_weighted"] <= 0:
+                raise AssertionError(f"17a {arch}: no collective recorded on 16 x 16")
+            print(f"[spmd] 17a {arch} train_4k ({SPMD_UNITS} units, {rep['policy']}, 16x16 fake mesh, "
+                  f"{len(rep['records'])} collectives, {rep['seconds']:.1f} s): per-card GB by op "
+                  f"{({k: round(v / 1e9, 4) for k, v in rep['by_op'].items()})}", flush=True)
+            for tot, cnt, b, op, sh in rep["top"]:
+                print(f"[spmd] 17a   {tot / 1e9:8.3f} GB  x{cnt:<4d} {b / 1e6:9.2f} MB  {op:16s} {sh}")
+            out[arch] = {"by_op": rep["by_op"], "n": len(rep["records"]), "seconds": rep["seconds"],
+                         "step_peak_bytes": rep["step_peak_bytes"]}
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - before
+    finally:
+        dist.destroy_process_group()
+    if grew > PLAN_CARD_BYTES:
+        raise AssertionError(f"17a: the profiles allocated {grew} bytes on the card")
+    print(f"[spmd] 17a the profiles' peak allocation on the card: {grew} bytes", flush=True)
+    return out
+
+
+def _rank0_shard(full, mesh, placements, spmd):
+    """Rank 0's shard of ``full`` as a DTensor on ``mesh`` (a copy)."""
+    local = full
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            local = local.chunk(mesh.size(i), dim=p.dim)[0]
+    return spmd.from_local(local.contiguous().clone(), mesh, placements)
+
+
+def _local_shape(shape, placements, mesh):
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def checked_segments(torch, ops, ref, log: list):
+    """Wrap ``ops.segment_aggregate``: each call on plain CUDA tensors (a
+    card's local shards) is held bit-equal to the plain version on a CPU
+    copy (NaNs, which a fake group's unfilled buffers may feed in, must sit
+    at the same places). Returns the undo."""
+    from repro_torch.utils import spmd
+
+    orig = ops.segment_aggregate
+
+    def seg(data, ids, k, weights=None):
+        out = orig(data, ids, k, weights)
+        if spmd.any_dtensor(data, ids, weights) or data.device.type != "cuda":
+            return out
+        want = ref.segment_aggregate(data.cpu(), ids.cpu(), k, None if weights is None else weights.cpu())
+        got = out.cpu()
+        nan = torch.isnan(want)
+        if not (torch.equal(nan, torch.isnan(got))
+                and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
+            raise AssertionError(f"17c: a segment call {tuple(data.shape)} K {k} is not the plain version's bits")
+        log.append((tuple(data.shape), int(k), data.dtype))
+        return out
+
+    ops.segment_aggregate = seg
+    return lambda: setattr(ops, "segment_aggregate", orig)
+
+
+def spmd_round(torch, card, ops, ref, cs, sa) -> dict:
+    """17c: phase 10b's granite-3-2b round at full width (``SPMD_LAYERS``
+    layers) under tp as rank 0 of a (1, 4) fake world, real local shards on
+    the card, against the SPMD plan and the fake-tensor probe of the same
+    step."""
+    import collections
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.specs import SDS
+    from repro_torch.models import build_model
+    from repro_torch.utils import hlo, spmd
+    from repro_torch.utils.tree import leaves, tree_map
+
+    cfg = get_config(GRANITE).replace(n_layers=SPMD_LAYERS)
+    model = build_model(cfg)
+    sc = steps.StepConfig(local_steps=2, d_sketch=128)
+    spec = {"tokens": SDS((LM_C, LM_M, LM_S), torch.int32)}
+    lmesh.init_fake_world(SPMD_WORLD[0] * SPMD_WORLD[1])
+    seg_log = []
+    try:
+        mesh = lmesh.make_mesh(SPMD_WORLD, ("data", "model"), "cuda")
+        t0 = time.perf_counter()
+        plan = dryrun.plan_step(cfg, "train", spec, mesh, "tp", sc, n_clients=LM_C)
+        fake = dryrun.probe_step(cfg, "train", spec, sc, mesh=mesh, policy="tp")
+        plan_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        full = model.init(rnd.key(0), device="cuda")
+        params = tree_map(lambda a, p: _rank0_shard(a, mesh, p, spmd), full,
+                          shd.param_shardings(full, mesh, "tp"))
+        opl = shd.param_shardings(full, mesh, "fsdp")
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Yogi's m and v under fsdp, as steps.yogi_init fills them
+        opt = {name: tree_map(lambda a, p, fill=fill: spmd.from_local(
+            torch.full(_local_shape(a.shape, p, mesh), fill, dtype=torch.float32 if name == "v" else a.dtype,
+                       device="cuda"), mesh, p), params, opl) for name, fill in (("m", 0.0), ("v", 1e-6))}
+        repl = shd.replicated(mesh)
+        clust = tree_map(lambda a: spmd.from_local(a, mesh, repl), steps.clustering_init(2, 128, device="cuda"))
+        toks = torch.from_numpy(synth_corpus(LM_C, LM_M, LM_S, cfg.vocab)[0]).cuda()
+        batch = {"tokens": _rank0_shard(toks, mesh, shd.batch_shardings({"tokens": toks}, mesh)["tokens"], spmd)}
+        step = steps.make_train_step(model, sc)
+        undo = checked_segments(torch, ops, ref, seg_log)
+        sa.launches = cs.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            # the step counted as the probe counts it, here on the real tensors
+            with implicit_replication():
+                real = hlo.count_step(lambda: step(params, opt, clust, batch),
+                                      leaves({"p": params, "o": opt, "c": clust, "b": batch}))
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        step_s = time.perf_counter() - t0
+        launches = {"cosine_similarity": cs.launches, "segment_aggregate": sa.launches}
+        measured = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del params, opt, clust, batch, step
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan_gb = plan["plan_bytes"] / 1e9
+    ratio = plan_gb / measured
+    records = real.collectives
+    real_counted = real.peak_bytes / 1e9
+    real, probe = collections.Counter(records), collections.Counter(fake.collectives)
+    print(f"[spmd] 17c {GRANITE} full width, {SPMD_LAYERS} layers, tp, rank 0 of a {SPMD_WORLD} fake world, "
+          f"real local shards: round {step_s:.2f} s (the fake group moves no data: the loss is not held); "
+          f"plan {plan_gb:.3f} GB (state {plan['state_bytes'] / 1e9:.3f} + inputs {plan['input_bytes'] / 1e9:.6f} "
+          f"+ step peak {plan['step_peak_bytes'] / 1e9:.3f}; planned in {plan_s:.1f} s) vs measured "
+          f"{measured:.3f} GB ({card}): plan / measured {ratio:.4f}; the probe's counter on the real "
+          f"tensors {real_counted:.3f} GB (state included)", flush=True)
+    print(f"[spmd] 17c collectives: real run {sum(real.values())}, fake-tensor probe {sum(probe.values())}, "
+          f"equal {real == probe}; per-card GB by op {({k: round(v / 1e9, 4) for k, v in hlo.collective_bytes(records).items()})}",
+          flush=True)
+    print(f"[spmd] 17c kernel launches {launches} on local shards; {len(seg_log)} segment calls, each "
+          f"bit-equal to the plain version on a CPU copy: {sorted(set(seg_log), key=repr)}", flush=True)
+    if ratio < PLAN_GATE:
+        raise AssertionError(f"17c: the plan {plan_gb:.3f} GB is more than 10% below the measured peak "
+                             f"{measured:.3f} GB")
+    if real != probe:
+        raise AssertionError(f"17c: the real run's collectives differ from the probe's: "
+                             f"{sorted((real - probe).items(), key=repr)[:5]} / {sorted((probe - real).items(), key=repr)[:5]}")
+    if launches["segment_aggregate"] <= 0 or launches["segment_aggregate"] != len(seg_log):
+        raise AssertionError(f"17c: {launches['segment_aggregate']} segment launches, {len(seg_log)} checked calls")
+    if launches["cosine_similarity"]:
+        raise AssertionError(f"17c: {launches['cosine_similarity']} cosine launches, none checked")
+    return {"plan_gb": plan_gb, "measured_gb": measured, "ratio": ratio, "collectives": sum(real.values()),
+            "launches": launches, "step_s": step_s, "counted_real_gb": real_counted}
+
+
+def spmd_phase(torch, card, plans16, ops, ref, cs, sa) -> dict:
+    """Phase 17: 17a the profiles, 17b phase 16's plans recorded no
+    collective on (1, 1), 17c the round on real local shards."""
+    t0 = time.perf_counter()
+    prof = spmd_profiles(torch)
+    for name, p in plans16.items():
+        if any(p["probes"]["n_collectives"]) or p["roofline"]["coll_bytes_per_device"] != 0:
+            raise AssertionError(f"17b: phase 16's {name} plan on (1, 1) recorded collectives")
+    print(f"[spmd] 17b phase 16's plans on (1, 1): collectives "
+          f"{({k: p['probes']['n_collectives'] for k, p in plans16.items()})} (0 in every probe)", flush=True)
+    rnd_ = spmd_round(torch, card, ops, ref, cs, sa)
+    secs = time.perf_counter() - t0
+    print(f"[spmd] phase 17 took {secs:.1f} s", flush=True)
+    return {"profiles": prof, "round": rnd_, "seconds": secs, "launches": rnd_["launches"]}
+
+
+def spmd_only(torch) -> int:
+    """``--spmd``: build, the two steps' peaks and phase 16, then phase 17."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import segment_aggregate as sa
+
+    card = smi()
+    print(card)
+    print(f"[build] {build.build()}")
+    measured = launch_steps(torch)
+    print(f"[launch] measured peaks (GB, {card}): {measured}", flush=True)
+    out16 = launch_phase(torch, card, measured)
+    out = spmd_phase(torch, card, out16["plans"], ops, ref, cs, sa)
+    print(json.dumps({"spmd": {"round": out["round"], "seconds": out["seconds"],
+                               "profiles": {k: {"by_op": v["by_op"], "n": v["n"], "seconds": v["seconds"]}
+                                            for k, v in out["profiles"].items()}}}))
+    print(card)
+    return 0
 
 
 def launch_only(torch) -> int:
@@ -3324,7 +3565,7 @@ def launch_only(torch) -> int:
     measured = launch_steps(torch)
     print(f"[launch] measured peaks (GB, {card}): {measured}", flush=True)
     out = launch_phase(torch, card, measured)
-    print(json.dumps({"launch": out}))
+    print(json.dumps({"launch": {k: v for k, v in out.items() if k != "plans"}}))
     print(card)
     return 0
 
@@ -3423,6 +3664,8 @@ def main(argv) -> int:
         return placement_only(torch)
     if "--launch" in argv:
         return launch_only(torch)
+    if "--spmd" in argv:
+        return spmd_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -3652,7 +3895,13 @@ def main(argv) -> int:
             r["max_abs_err"] = max(r["max_abs_err"], pl["worst"][r["name"]])
 
     # --------------------------------------------------- phase 16: launch plan
-    launch_phase(torch, card, {"10b": lm["peak_gb"], "13b": fam["qwen3"]["peak_gb"]})
+    out16 = launch_phase(torch, card, {"10b": lm["peak_gb"], "13b": fam["qwen3"]["peak_gb"]})
+
+    # ---------------------------------------------------- phase 17: SPMD probe
+    sp = spmd_phase(torch, card, out16["plans"], ops, ref, cs, sa)
+    for r in report:
+        if r["name"] in ROUND_KERNELS:
+            r["spmd_launches"] = sp["launches"][r["name"]]
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

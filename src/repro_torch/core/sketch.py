@@ -32,6 +32,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.utils import spmd
 from repro_torch.utils.tree import leaves_with_path, tree_map
 
 CACHE_FLOATS = 1 << 24  # a leaf's matrices are cached up to this many floats (64 MB)
@@ -71,6 +72,43 @@ def leaf_projection(flat: torch.Tensor, blocks: Iterable[torch.Tensor]) -> torch
         prod = part @ r
         out = prod if out is None else out + prod
         lo += r.shape[0]
+    return out / math.sqrt(max(n, 1))
+
+
+ROW_CHUNK = 1 << 16  # rows of a split leaf's projection drawn at a time
+
+
+def row_blocks(index: torch.Tensor, n: int, d_sketch: int, seed: int) -> Iterable[Tuple[int, torch.Tensor]]:
+    """(start, (len, d_sketch) matrix) pieces of the projection rows at the
+    global flat indices ``index`` (a card's shard of a leaf of n values),
+    drawn ``ROW_CHUNK`` rows at a time (``random.rademacher_rows``)."""
+    block = _block_size(n)
+    key = rnd.key(seed, device=index.device)
+    for lo in range(0, index.shape[0], ROW_CHUNK):
+        yield lo, rnd.rademacher_rows(key, block, index[lo:lo + ROW_CHUNK], d_sketch)
+
+
+def shard_index(shape: Sequence[int], local_shape: Sequence[int], offsets: Sequence[int], device) -> torch.Tensor:
+    """The global flat (row-major) indices of a shard of a ``shape`` leaf:
+    ``local_shape`` elements from ``offsets`` on, flattened in the shard's
+    own row-major order (which keeps them ascending)."""
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        ax = (offsets[d] + torch.arange(local_shape[d], dtype=torch.int64, device=device)) * stride
+        idx = idx + ax.reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= shape[d]
+    return idx.reshape(-1)
+
+
+def shard_projection(flat: torch.Tensor, index: torch.Tensor, n: int, d_sketch: int, seed: int) -> torch.Tensor:
+    """One card's part of ``leaf_projection``: rows (R, n_local) of a leaf
+    shard whose elements sit at global flat ``index`` -> (R, d_sketch), its
+    sum over the shards being the whole leaf's projection."""
+    out = None
+    for lo, r in row_blocks(index, n, d_sketch, seed):
+        prod = flat[:, lo:lo + r.shape[0]].float() @ r
+        out = prod if out is None else out + prod
     return out / math.sqrt(max(n, 1))
 
 
@@ -144,12 +182,48 @@ class GradientSketcher:
         a row axis (R, ...) -> (R, d_sketch) float32 sketches, one per row."""
         if self.strategy == "tensor_norms":
             return self._tensor_norms(self._selected(updates))
-        acc = None
+        acc = part = None
         for i, (_, leaf) in enumerate(self._selected(updates)):
-            flat = leaf.reshape(leaf.shape[0], -1)
-            proj = leaf_projection(flat, self._matrices(flat.shape[1], i, flat.device))
+            if spmd.is_dtensor(leaf):
+                proj, split = self._project_shards(leaf, i)
+                if split:  # a sum of the cards' parts, reduced once below
+                    part = proj if part is None else part + proj
+                    continue
+            else:
+                flat = leaf.reshape(leaf.shape[0], -1)
+                proj = leaf_projection(flat, self._matrices(flat.shape[1], i, flat.device))
             acc = proj if acc is None else acc + proj
+        if part is not None:
+            part = spmd.replicate_partial(part)
+            acc = part if acc is None else acc + part
         if acc is None:
             leaf = leaves_with_path(updates)[0][1]
             return torch.zeros((leaf.shape[0], self.d_sketch), dtype=torch.float32, device=leaf.device)
         return acc
+
+    def _project_shards(self, leaf, i: int):
+        """(projection, split) of a DTensor leaf (R, ...): each card projects
+        its own shard. A leaf that no mesh dim splits beyond its rows takes
+        the one-device path on the card's rows (its bits on a (1, 1) mesh);
+        a split leaf projects its shard's rows of the matrices (drawn at the
+        shard's global row offsets), a ``Partial`` sum over the cards."""
+        mesh = leaf.device_mesh
+        leaf = spmd.replicate_partial(leaf)
+        split = [m for m, p in enumerate(leaf.placements) if p.is_shard() and p.dim > 0 and mesh.size(m) > 1]
+        rows = [spmd.shard_dim(p) == 0 for p in leaf.placements]
+        out_pl = [spmd._shard(0) if r else (spmd._partial() if m in split else spmd._replicate())
+                  for m, r in enumerate(rows)]
+        shape = tuple(leaf.shape[1:])
+        n = math.prod(shape)
+        seed = self.seed * 7919 + i
+        if not split:
+            def fn(x):
+                flat = x.reshape(x.shape[0], -1)
+                return leaf_projection(flat, self._matrices(n, i, flat.device))
+        else:
+            offsets = [spmd.shard_offset(leaf, d + 1) for d in range(len(shape))]
+
+            def fn(x):
+                index = shard_index(shape, tuple(x.shape[1:]), offsets, x.device)
+                return shard_projection(x.reshape(x.shape[0], -1), index, n, self.d_sketch, seed)
+        return spmd.local(fn, (leaf,), out_pl, mesh), bool(split)

@@ -14,6 +14,13 @@ to the CUDA kernel; there is no fallback between the two, and any other
 device raises. A fake tensor (``FakeTensorMode``, the dry run's plan)
 stands for the card's on any device: it takes the kernel wrapper's shape
 rule (the kernel's output allocation, no launch), never the plain version.
+
+A DTensor (the SPMD step's clustering and aggregation) runs the segment
+sum on each card's local shards (``utils.spmd.local``): a split of the
+rows it sums over leaves a ``Partial`` result, a split of a column or of
+the leading cohort axis a split result, and ids or weights are gathered
+where the data is whole. The cosine and decode attention take no
+DTensor: no SPMD path calls them.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch.kernels import cosine_sim as _cs
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_aggregate as _sa
+from repro_torch.utils import spmd
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -60,6 +68,8 @@ def segment_aggregate(
 ) -> torch.Tensor:
     """data: (P, D), ids: (P,) -> (K, D) weighted segment sums; or data
     (C, P, D) with ids (and weights) (C, P) -> (C, K, D) in one launch."""
+    if spmd.any_dtensor(data, segment_ids, weights):
+        return _segment_aggregate_spmd(data, segment_ids, num_segments, weights)
     if _route(data) == "cpu":
         return ref.segment_aggregate(data, segment_ids, num_segments, weights)
     lead = data.dim() == 2
@@ -98,3 +108,32 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length) 
     qk, kk, vk = q.to(dt).contiguous(), rows(k), rows(v)
     n = torch.as_tensor(length, device=q.device).to(torch.int32).broadcast_to((B,)).contiguous()
     return _da.decode_attention(qk, kk, vk, n).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The segment sum of DTensors: each card sums its shards
+# ---------------------------------------------------------------------------
+
+
+def _segment_aggregate_spmd(data, segment_ids, num_segments, weights):
+    """Per mesh dim: data split on its rows (P) sums each card's rows, a
+    ``Partial`` result (ids and weights split alike); split on D or the
+    cohort axis, a result split alike; replicated, ids and weights
+    replicated too."""
+    mesh = next(t.device_mesh for t in (data, segment_ids, weights) if spmd.is_dtensor(t))
+    data, ids, w = (spmd.as_dtensor(t, mesh) for t in (data, segment_ids, weights))
+    data = spmd.replicate_partial(data)
+    pdim = data.dim() - 2
+    dpl, ipl, opl = [], [], []
+    for m, p in enumerate(data.placements):
+        d = spmd.shard_dim(p) if mesh.size(m) > 1 else None
+        if d == pdim:
+            dpl.append(p), ipl.append(spmd._shard(ids.dim() - 1)), opl.append(spmd._partial())
+        elif d is not None and (d == data.dim() - 1 or (d == 0 and data.dim() == 3)):
+            dpl.append(p), ipl.append(spmd._shard(0) if d == 0 else spmd._replicate()), opl.append(p)
+        else:
+            dpl.append(spmd._replicate()), ipl.append(spmd._replicate()), opl.append(spmd._replicate())
+    data = spmd.redistribute(data, dpl)
+    ids = spmd.redistribute(spmd.replicate_partial(ids), ipl)
+    w = None if w is None else spmd.redistribute(spmd.replicate_partial(w), ipl)
+    return spmd.local(lambda d, i, ww: segment_aggregate(d, i, num_segments, ww), (data, ids, w), opl, mesh)

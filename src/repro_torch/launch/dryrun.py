@@ -1,5 +1,6 @@
-"""Dry run: the per-card memory and FLOP plan of every (arch × shape) on
-the production mesh, on an H100 (port of ``repro.launch.dryrun``).
+"""Dry run: the per-card memory, FLOP and collective plan of every
+(arch × shape) on the production mesh, on an H100 (port of
+``repro.launch.dryrun``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
@@ -13,25 +14,30 @@ tensors of the same shapes and dtypes (a CPU-only build cannot index fake
 CUDA tensors); the kernel wrappers give either the kernel's output
 allocation and no launch.
 
+The probe is an SPMD execution, as the reference's ``_compile_one`` is a
+compiled SPMD program: the step's state and inputs are DTensors on the
+mesh (params under the policy, Yogi's m and v under ``fsdp``, the
+clustering state replicated, the batch by ``batch_shardings``, the decode
+cache by ``cache_shardings``), the step runs as one program over the
+mesh (``utils.spmd`` holds its explicit rules), and one card's local
+tensors are counted (``utils.hlo.count_step``), its collectives recorded.
+
 Per card, the report holds:
-  - state bytes: what lives between steps (params under the policy,
-    Yogi's m and v under ``fsdp`` as the reference places them, the
-    clustering state; the decode cache under ``cache_spec``), exact from
-    the specs (``sharding.per_card_bytes``);
+  - state bytes: what lives between steps, exact from the specs
+    (``sharding.per_card_bytes``, ``sharding.cache_bytes``);
   - input bytes: the card's share of the batch;
   - step peak: what the step allocates on top (client deltas, gradients,
-    activations, temporaries), the peak live bytes of the step run on the
-    card's share of the batch (``utils.hlo.count_step``) in 1- and 2-unit
-    probes, extrapolated as ``base + per_unit × units``. The probe splits
-    nothing over ``model`` and keeps whole deltas, so under ``tp`` and
-    ``fsdp`` this term is an upper bound;
+    activations, temporaries, collective buffers), the peak live bytes of
+    the card's local tensors in 1- and 2-unit probes, extrapolated as
+    ``base + per_unit × units``; past 2 units a 3-unit probe too, and the
+    plan is the last probe's peak plus the largest per-unit step for each
+    unit beyond it (``_extrap_peak``: the peak's growth can rise with
+    depth);
   - ``fits``: state + inputs + step peak within the card's 80 GB.
-FLOPs and bytes accessed come from the same probes, extrapolated the same
-way; per card they are the probe's divided evenly over the ``model`` axis
-(an assumption, stated in the report). Collectives are not measured: the
-port has no SPMD execution to record them from (a DTensor run of the
-models does not propagate through the checkpointed blocks), so
-``collective_s`` is null with its reason.
+FLOPs, bytes accessed and collective bytes (by op, and weighted: an
+all-reduce twice) come from the same probes, extrapolated the same way,
+as the reference extrapolates them from its 1- and 2-unit programs.
+``collective_s`` is the weighted bytes over one card's NVLink bandwidth.
 
 Results land in ``experiments/dryrun_h100/<arch>__<shape>__<mesh>.json``.
 """
@@ -44,7 +50,7 @@ import math
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
@@ -52,8 +58,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.core import sketch
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import data_size, init_fake_world, make_production_mesh, model_size
-from repro_torch.launch.specs import TRAIN_CLIENTS, effective_config, flat_batch_specs, input_specs
+from repro_torch.launch.mesh import init_fake_world, make_production_mesh
+from repro_torch.launch.specs import SDS, TRAIN_CLIENTS, effective_config, flat_batch_specs, input_specs
 from repro_torch.launch.steps import (
     StepConfig,
     make_central_train_step,
@@ -63,17 +69,13 @@ from repro_torch.launch.steps import (
     yogi_init,
 )
 from repro_torch.models.zoo import build_model
-from repro_torch.utils import hlo
+from repro_torch.utils import hlo, spmd
 from repro_torch.utils.tree import leaves, tree_map
 
 # archs whose params cannot be replicated per data shard: FSDP + centralized
 FSDP_ARCHS = {"qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"}
 
 OUT_DIR = Path("experiments/dryrun_h100")
-
-NO_COLLECTIVES = ("not measured: the port has no SPMD execution yet (DTensor does not run the "
-                  "models' checkpointed blocks), so no collective is recorded")
-
 
 def _pattern_len(cfg) -> int:
     """Layers per repeating unit (superblock) of this family."""
@@ -106,13 +108,14 @@ def _local_batch(batch: Dict[str, Any], mesh, seq_shard: bool) -> Dict[str, Any]
 @contextlib.contextmanager
 def _one_draw_per_leaf(counter: hlo.StepCounter):
     """The sketch projects a large leaf through one Rademacher block of
-    2**16 rows after another (``core.sketch.projection_blocks``), each a
-    threefry hash of ~200 aten ops: thousands of blocks a step, which fake
-    tensors would replay one op at a time. Here the first block of a leaf
-    is drawn (its temporaries and traffic counted as they come) and stands
-    for the others, whose draws add the first one's bytes; every block's
-    product with the leaf is still dispatched and counted."""
-    orig = sketch.projection_blocks
+    2**16 rows after another (``core.sketch.projection_blocks``; a split
+    leaf's shard, ``core.sketch.row_blocks``), each a threefry hash of ~200
+    aten ops: thousands of blocks a step, which fake tensors would replay
+    one op at a time. Here the first block of a leaf is drawn (its
+    temporaries and traffic counted as they come) and stands for the
+    others, whose draws add the first one's bytes; every block's product
+    with the leaf is still dispatched and counted."""
+    orig, orig_rows = sketch.projection_blocks, sketch.row_blocks
 
     def blocks(n, d_sketch, seed, device):
         before = counter.bytes_accessed
@@ -123,46 +126,110 @@ def _one_draw_per_leaf(counter: hlo.StepCounter):
             counter.bytes_accessed += per
             yield first
 
-    sketch.projection_blocks = blocks
+    def rows(index, n, d_sketch, seed):
+        before = counter.bytes_accessed
+        _, first = next(iter(orig_rows(index, n, d_sketch, seed)))
+        per = counter.bytes_accessed - before
+        yield 0, first
+        for lo in range(sketch.ROW_CHUNK, index.shape[0], sketch.ROW_CHUNK):
+            counter.bytes_accessed += per
+            yield lo, first[:index.shape[0] - lo]
+
+    sketch.projection_blocks, sketch.row_blocks = blocks, rows
     try:
         yield
     finally:
-        sketch.projection_blocks = orig
+        sketch.projection_blocks, sketch.row_blocks = orig, orig_rows
+
+
+def _placed(shape, dtype, placements, mesh, dev):
+    """An uninitialized DTensor of ``shape`` on ``mesh`` (each card's shard
+    allocated; a fake tensor under ``FakeTensorMode``)."""
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    return spmd.from_local(torch.empty(local, dtype=dtype, device=dev), mesh, placements)
+
+
+def _state(shapes, kind: str, batch: Dict[str, Any], step_cfg: StepConfig, mesh, policy: str, dev,
+           cache_shapes, seq_shard_cache: bool):
+    """The step's state and inputs on ``dev`` (fake tensors): plain tensors
+    without a mesh; DTensors placed as the reference's ``_compile_one``
+    places them with one (params under ``policy``, Yogi's m and v under
+    ``fsdp``, the clustering state replicated, the batch by
+    ``batch_shardings``, the decode cache by ``cache_shardings``)."""
+    if mesh is None:
+        place = lambda a, pl=None: torch.empty(a.shape, dtype=a.dtype, device=dev)  # noqa: E731
+        pshard = oshard = tree_map(lambda a: None, shapes)
+        bshard = {k: None for k in batch}
+        repl = None
+    else:
+        place = lambda a, pl: _placed(a.shape, a.dtype, pl, mesh, dev)  # noqa: E731
+        pshard = shd.param_shardings(shapes, mesh, policy)
+        oshard = shd.param_shardings(shapes, mesh, "fsdp")
+        bshard = shd.batch_shardings(batch, mesh, seq_shard=policy == "dp")
+        repl = shd.replicated(mesh)
+    state = {"params": tree_map(place, shapes, pshard),
+             "inputs": {k: place(s, bshard[k]) for k, s in batch.items()}}
+    if kind == "train":
+        f32 = tree_map(lambda a: SDS(a.shape, torch.float32), shapes)
+        state["opt"] = {"m": tree_map(place, shapes, oshard), "v": tree_map(place, f32, oshard)}
+        k, d = step_cfg.cluster_k, step_cfg.d_sketch
+        state["clust"] = {name: place(SDS(sh, torch.float32), repl)
+                          for name, sh in (("centroids", (k, d)), ("counts", (k,)), ("initialized", ()))}
+    if kind == "decode":
+        B = batch["tokens"].shape[0]
+        cache = tree_map(lambda a: SDS(tuple(a.shape), a.dtype), cache_shapes)
+        cshard = (tree_map(lambda a: None, cache) if mesh is None
+                  else shd.cache_shardings(cache, B, mesh, seq_shard_cache))
+        state["cache"] = tree_map(place, cache, cshard)
+    return state
 
 
 def probe_step(cfg, kind: str, batch: Dict[str, Any], step_cfg: StepConfig, central: bool = False,
-               n_clients: int = TRAIN_CLIENTS, cache_len: int = 0) -> hlo.StepCounts:
-    """One step of ``cfg`` on fake tensors of the card (``batch``: the
-    card's ShapeDtype inputs): its FLOPs, bytes and peak live bytes, the
-    step's state and inputs registered as external."""
+               n_clients: int = TRAIN_CLIENTS, cache_len: int = 0, mesh=None, policy: str = "tp",
+               seq_shard_cache: bool = False) -> hlo.StepCounts:
+    """One step of ``cfg`` on fake tensors: its FLOPs, bytes, peak live bytes
+    and collectives on one card, the step's state and inputs registered as
+    external. Without ``mesh``, ``batch`` is the card's ShapeDtype inputs
+    and the step runs on plain tensors. With one (the SPMD probe), ``batch``
+    is the whole batch, the state and inputs are DTensors placed on
+    ``mesh`` under ``policy``, and the step runs as one program over the
+    mesh (the fake process group's), counted on the card's local tensors."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     dev = fake_device()
     model = build_model(cfg)
-    shapes = model.init_shapes()  # meta tensors, made outside the fake mode
+    # shapes from meta tensors, made outside the fake mode
+    shapes = tree_map(lambda a: SDS(tuple(a.shape), a.dtype), model.init_shapes())
+    cache_shapes = None
+    if kind == "decode":
+        cache_shapes = model.init_cache(batch["tokens"].shape[0], cache_len, torch.bfloat16, device="meta")
     with FakeTensorMode():
-        params = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype, device=dev), shapes)
-        inputs = {k: s.empty(dev) for k, s in batch.items()}
-        external = leaves(params) + list(inputs.values())
+        st = _state(shapes, kind, batch, step_cfg, mesh, policy, dev, cache_shapes, seq_shard_cache)
+        params, inputs = st["params"], st["inputs"]
+        external = leaves(st)
         if kind == "train":
-            opt = yogi_init(params)
-            clust = {"centroids": torch.zeros((step_cfg.cluster_k, step_cfg.d_sketch), device=dev),
-                     "counts": torch.zeros((step_cfg.cluster_k,), device=dev),
-                     "initialized": torch.zeros((), device=dev)}
-            external += leaves(opt["m"]) + leaves(opt["v"]) + list(clust.values())
             step = (make_central_train_step(model, step_cfg, n_clients=n_clients) if central
                     else make_train_step(model, step_cfg))
-            fn = lambda: step(params, opt, clust, inputs)  # noqa: E731
+            fn = lambda: step(params, st["opt"], st["clust"], inputs)  # noqa: E731
         elif kind == "prefill":
             fn = lambda: make_prefill_step(model, step_cfg)(params, inputs)  # noqa: E731
         else:
-            B = inputs["tokens"].shape[0]
-            cache = model.init_cache(B, cache_len, torch.bfloat16, device=dev)
-            external += leaves(cache)
-            fn = lambda: make_serve_step(model, step_cfg)(params, cache, inputs)  # noqa: E731
+            fn = lambda: make_serve_step(model, step_cfg)(params, st["cache"], inputs)  # noqa: E731
         counter = hlo.StepCounter()
-        with _one_draw_per_leaf(counter):
+        spmd_ctx = contextlib.nullcontext() if mesh is None else _implicit_replication()
+        with _one_draw_per_leaf(counter), spmd_ctx:
             return hlo.count_step(fn, external, counter)
+
+
+def _implicit_replication():
+    """Plain tensors the models make themselves (positions, masks, RoPE
+    tables) join DTensor ops as replicated ones."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 def _extrap(a1: float, a2: float, n_units: float) -> float:
@@ -171,17 +238,28 @@ def _extrap(a1: float, a2: float, n_units: float) -> float:
     return base + per_unit * n_units
 
 
+def _extrap_peak(peaks, n_units: float) -> float:
+    """The step peak at ``n_units`` from probes at 1, 2 (and, past 2 units,
+    3) units: the last probe plus the largest per-unit step for each unit
+    beyond it. A peak is the highest of several moments of the step, each
+    growing with depth at its own rate, so its per-unit step can grow from
+    one probe to the next (granite-3-2b's round under tp on (1, 4): +0.122
+    GB from 1 to 2 layers, +0.167 from 2 to 3, +0.182 a layer from 3 on)."""
+    if len(peaks) < 3:
+        return _extrap(peaks[0], peaks[1], n_units)
+    per_unit = max(max(b - a for a, b in zip(peaks, peaks[1:])), 0.0)
+    return peaks[-1] + per_unit * (n_units - len(peaks))
+
+
 def plan_step(cfg, kind: str, batch: Dict[str, Any], mesh, policy: str, step_cfg: StepConfig,
               n_clients: int = TRAIN_CLIENTS, cache_len: int = 0, seq_shard_cache: bool = False
               ) -> Dict[str, Any]:
     """The per-card plan of one step of ``cfg`` (full depth) on ``mesh``:
-    ``batch`` is the whole batch (ShapeDtype records) and the card takes
-    its share. A train step under ``fsdp`` is the centralized step, as in
-    the reference's dry run."""
+    ``batch`` is the whole batch (ShapeDtype records); the SPMD probe runs
+    the step over the mesh and counts one card. A train step under
+    ``fsdp`` is the centralized step, as in the reference's dry run."""
     central = kind == "train" and policy == "fsdp"
     local = _local_batch(batch, mesh, seq_shard=policy == "dp")
-    if central:
-        n_clients = max(1, n_clients // data_size(mesh))
     shapes = build_model(cfg).init_shapes()
     state = {"params": shd.per_card_bytes(shapes, mesh, policy)}
     if kind == "train":
@@ -197,16 +275,21 @@ def plan_step(cfg, kind: str, batch: Dict[str, Any], mesh, policy: str, step_cfg
     plen = _pattern_len(cfg)
     n_units = cfg.n_layers / plen
     t0 = time.time()
-    c1, c2 = (probe_step(_with_units(cfg, u), kind, local, step_cfg, central, n_clients, cache_len)
-              for u in (1, 2))
+    # FLOPs, bytes and collectives from 1 and 2 units, as the reference
+    # extrapolates them; past 2 units a third probe for the step peak
+    units = (1, 2, 3) if n_units > 2 else (1, 2)
+    probes = [probe_step(_with_units(cfg, u), kind, batch, step_cfg, central, n_clients, cache_len, mesh=mesh,
+                         policy=policy, seq_shard_cache=seq_shard_cache) for u in units]
     probe_s = time.time() - t0
-    step_peak = _extrap(c1.step_peak_bytes, c2.step_peak_bytes, n_units)
-    msize = model_size(mesh)
+    c1, c2 = probes[:2]
+    step_peak = _extrap_peak([c.step_peak_bytes for c in probes], n_units)
+    k1, k2 = hlo.collective_bytes(c1.collectives), hlo.collective_bytes(c2.collectives)
     roof = hlo.Roofline(
-        flops=_extrap(c1.flops, c2.flops, n_units) / msize,
-        bytes_accessed=_extrap(c1.bytes_accessed, c2.bytes_accessed, n_units) / msize,
-        coll_bytes=None, coll_by_op=None, peak_flops=hlo.peak_flops(cfg.dtype),
-        collectives=NO_COLLECTIVES,
+        flops=_extrap(c1.flops, c2.flops, n_units),
+        bytes_accessed=_extrap(c1.bytes_accessed, c2.bytes_accessed, n_units),
+        coll_bytes=_extrap(k1["total_weighted"], k2["total_weighted"], n_units),
+        coll_by_op={k: _extrap(k1[k], k2[k], n_units) for k in k1 if k != "total_weighted"},
+        peak_flops=hlo.peak_flops(cfg.dtype),
     )
     state_bytes = sum(state.values())
     plan = state_bytes + input_bytes + step_peak
@@ -217,18 +300,26 @@ def plan_step(cfg, kind: str, batch: Dict[str, Any], mesh, policy: str, step_cfg
         "state_by_part": state,
         "input_bytes": input_bytes,
         "step_peak_bytes": step_peak,
-        "step_peak_note": ("upper bound under tp and fsdp: the probe splits nothing over 'model' and "
-                           "keeps whole client deltas" if policy in ("tp", "fsdp") else ""),
         "plan_bytes": plan,
         "fits": plan <= hlo.HBM_BYTES,
         "hbm_bytes": hlo.HBM_BYTES,
-        "probes": {"units": [1, 2], "n_units": n_units, "step_peak_bytes": [c1.step_peak_bytes, c2.step_peak_bytes],
-                   "flops": [c1.flops, c2.flops], "bytes": [c1.bytes_accessed, c2.bytes_accessed],
-                   "seconds": probe_s},
+        "probes": {"units": list(units), "n_units": n_units, "step_peak_bytes": [c.step_peak_bytes for c in probes],
+                   "flops": [c.flops for c in probes], "bytes": [c.bytes_accessed for c in probes],
+                   "coll_bytes": [hlo.collective_bytes(c.collectives)["total_weighted"] for c in probes],
+                   "n_collectives": [len(c.collectives) for c in probes], "seconds": probe_s},
         "flops_probe": _extrap(c1.flops, c2.flops, n_units),
-        "per_device_note": f"the probe's FLOPs and bytes divided evenly over the model axis ({msize})",
+        "per_device_note": "FLOPs, bytes, step peak and collectives of one card's local tensors in the SPMD probe",
         "roofline": roof.as_dict(),
     }
+
+
+def parse_overrides(kvs) -> Dict[str, Any]:
+    """``--set k=v`` config overrides (integers where they parse)."""
+    out = {}
+    for kv in kvs:
+        k, v = kv.split("=", 1)
+        out[k] = int(v) if v.lstrip("-").isdigit() else v
+    return out
 
 
 def lower_one(arch: str, shape_name: str, multi_pod: bool, policy_override=None,
@@ -258,7 +349,7 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool, policy_override=None,
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
     mult = 6 if shape.kind == "train" else 2
     model_flops = mult * n_active * tokens
-    flops_global = plan["flops_probe"] * data_size(mesh)
+    flops_global = plan["flops_probe"] * mesh.size()
     return {
         "arch": arch,
         "shape": shape_name,
@@ -277,7 +368,7 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool, policy_override=None,
         "flops_global": flops_global,
         "useful_flops_ratio": model_flops / flops_global if flops_global else 0.0,
         "memory": {k: plan[k] for k in ("state_bytes", "state_by_part", "input_bytes", "step_peak_bytes",
-                                        "step_peak_note", "plan_bytes", "fits", "hbm_bytes")},
+                                        "plan_bytes", "fits", "hbm_bytes")},
         "fits": plan["fits"],
         "step": plan["step"],
         "local_batch": plan["local_batch"],
@@ -287,10 +378,6 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool, policy_override=None,
         "roofline_extrapolated": True,
         "plan_s": time.time() - t0,
     }
-
-
-def _fmt_ms(s: Optional[float]) -> str:
-    return "    null" if s is None else f"{s * 1e3:8.2f}"
 
 
 def main(argv=None):
@@ -324,10 +411,7 @@ def main(argv=None):
                 mesh_tag = "2x16x16" if multi else "16x16"
                 name = f"{arch}__{shape}__{mesh_tag}" + (f"__{args.tag}" if args.tag else "")
                 step_cfg = StepConfig(accum_steps=args.accum) if args.accum != 1 else None
-                overrides = {}
-                for kv in args.set:
-                    k, v = kv.split("=", 1)
-                    overrides[k] = v if not v.lstrip("-").isdigit() else int(v)
+                overrides = parse_overrides(args.set)
                 try:
                     rep = lower_one(arch, shape, multi, args.policy, step_cfg=step_cfg,
                                     extra_tag=args.tag, cfg_overrides=overrides or None,
@@ -335,8 +419,8 @@ def main(argv=None):
                     (outdir / f"{name}.json").write_text(json.dumps(rep, indent=2))
                     r, m = rep["roofline"], rep["memory"]
                     print(
-                        f"OK  {name:60s} compute={_fmt_ms(r['compute_s'])}ms "
-                        f"memory={_fmt_ms(r['memory_s'])}ms coll={_fmt_ms(r['collective_s'])}ms "
+                        f"OK  {name:60s} compute={r['compute_s'] * 1e3:8.2f}ms "
+                        f"memory={r['memory_s'] * 1e3:8.2f}ms coll={r['collective_s'] * 1e3:8.2f}ms "
                         f"bottleneck={r['bottleneck']:10s} plan={m['plan_bytes'] / 1e9:7.2f}GB "
                         f"fits={m['fits']} ({rep['plan_s']:.0f}s)",
                         flush=True,

@@ -48,6 +48,7 @@ from repro_torch.core.sketch import GradientSketcher
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer
 from repro_torch.models.zoo import Model
+from repro_torch.utils import spmd
 from repro_torch.utils.tree import leaves, tree_map
 
 
@@ -67,6 +68,8 @@ def clustering_update(state, sketches: torch.Tensor, ema: float = 0.3):
     """Algorithm-1 round: center, normalize, assign, EMA refresh, instant
     rewards. sketches: (C, d). The cluster sums and counts are segment sums
     (``kernels.ops.segment_aggregate``); ``xn @ cents.T`` is a plain dot."""
+    if spmd.is_dtensor(sketches):  # (C, d) is small: every card clusters all of it
+        return spmd.replicated(lambda st, sk: clustering_update(st, sk, ema), state, sketches)
     x = sketches.float()
     C = x.shape[0]
     mu = torch.mean(x, dim=0, keepdim=True)
@@ -128,6 +131,8 @@ def yogi_init(params):
 def _yogi_leaf(p, m, v, d, lr, beta1, beta2, tau):
     """One leaf of ``yogi_apply``, in place, with the JAX package's
     operations in its order (two temporaries of the leaf's size at most)."""
+    if spmd.is_dtensor(m):  # the delta's pending sums land in the optimizer's shards
+        d = spmd.redistribute(d, m.placements)
     d = d.to(m.dtype)
     t = d * (1 - beta1)
     m.mul_(beta1).add_(t)
@@ -200,6 +205,8 @@ def _grads(loss_of: Callable, params, cfg):
     with torch.enable_grad():
         loss, aux = loss_of(tree)
         grads = list(torch.autograd.grad(loss, views))
+    # DTensor gradients land in their parameters' layout (pending sums reduced)
+    grads = [spmd.redistribute(g, v.placements) if spmd.is_dtensor(g) else g for g, v in zip(grads, views)]
     return loss.detach(), aux, [v.detach() for v in views], grads
 
 
@@ -239,6 +246,29 @@ class StepConfig:
     window: int = -1  # attention window override (-1 = config default)
 
 
+def _client_sum(d: torch.Tensor, ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The (1, C) weighted sum of a (C, ...) delta leaf, one segment
+    (``kernels.ops.segment_aggregate`` of the leaf flattened) -> (1, 1, n).
+    A DTensor leaf is summed on each card's shard (a sum over client rows is
+    column-local): its clients' rows give a ``Partial`` sum over the data
+    axes, its split columns a result split alike."""
+    if not spmd.is_dtensor(d):
+        return kops.segment_aggregate(d.reshape(1, d.shape[0], -1), ids, 1, w)
+    mesh = d.device_mesh
+    rows = [spmd.shard_dim(p) == 0 and mesh.size(m) > 1 for m, p in enumerate(d.placements)]
+    d = spmd.redistribute(d, [p if p.is_shard() else spmd._replicate() for p in d.placements])
+    cut = [spmd._shard(1) if r else spmd._replicate() for r in rows]
+    ids, w = (spmd.redistribute(spmd.replicate_partial(spmd.as_dtensor(t, mesh)), cut) for t in (ids, w))
+    out = [spmd._partial() if r else (spmd._shard(p.dim - 1) if p.is_shard() and p.dim > 0 else spmd._replicate())
+           for r, p in zip(rows, d.placements)]
+
+    def fn(dl, il, wl):
+        agg = kops.segment_aggregate(dl.reshape(1, dl.shape[0], -1), il, 1, wl)
+        return agg.reshape(dl.shape[1:])
+
+    return spmd.local(fn, (d, ids, w), out, mesh)
+
+
 def make_train_step(model: Model, step_cfg: StepConfig) -> Callable:
     cfg = model.cfg
     sketcher = GradientSketcher(d_sketch=step_cfg.d_sketch, strategy="last_block_proj")
@@ -271,18 +301,25 @@ def make_train_step(model: Model, step_cfg: StepConfig) -> Callable:
     def train_step(params, opt_state, clust_state, batch):
         """One cohort FL round. batch leaves: (C, m, ...). Returns (params,
         opt_state, clust_state, metrics); params and opt_state are the given
-        trees, updated in place."""
-        C = batch["tokens"].shape[0]
-        deltas = tree_map(lambda a: torch.empty((C,) + tuple(a.shape), dtype=a.dtype, device=a.device),
-                            params)
+        trees, updated in place. On DTensors each card trains the clients of
+        its data shard (``spmd.Rows``) with the model split over ``model``."""
+        rows = spmd.Rows.of(batch["tokens"])
+        mine = params if rows is None else tree_map(rows.params, params)
+        local = batch if rows is None else {k: rows.local(a) for k, a in batch.items()}
+        C = local["tokens"].shape[0]
+        deltas = tree_map(lambda a: spmd.rows_like(a, C), mine)
         losses = []
         for c in range(C):
             work = tree_map(lambda d: d[c], deltas)
             with torch.no_grad():
-                for w, p in zip(leaves(work), leaves(params)):
+                for w, p in zip(leaves(work), leaves(mine)):
                     w.copy_(p)
-            losses.append(client_update(work, params, {k: a[c] for k, a in batch.items()}))
+            losses.append(client_update(work, mine, {k: a[c] for k, a in local.items()}))
         del work  # its views would keep every delta leaf alive below
+        losses = torch.stack(losses)
+        if rows is not None:  # every card's clients, one tensor split over the data axes
+            deltas, losses = tree_map(rows.full, deltas), rows.full(losses)
+        C = losses.shape[0]
 
         with torch.no_grad():
             # per-client gradient sketches (JL projection of the last block)
@@ -298,13 +335,13 @@ def make_train_step(model: Model, step_cfg: StepConfig) -> Callable:
             del deltas
             for p, m, v in zip(leaves(params), leaves(opt_state["m"]), leaves(opt_state["v"])):
                 d = flat_d.pop(0)
-                agg = kops.segment_aggregate(d.reshape(1, C, -1), ids, 1, w)
+                agg = _client_sum(d, ids, w)
                 del d
                 _yogi_leaf(p, m, v, agg.reshape(p.shape).to(p.dtype), step_cfg.server_lr,
                            0.9, 0.99, 1e-3)
                 del agg
         metrics = {
-            "loss": torch.mean(torch.stack(losses)),
+            "loss": torch.mean(losses),
             "dispersion": cmetrics["dispersion"],
             "cluster_counts": cmetrics["cluster_counts"],
             "reward_mean": torch.mean(cmetrics["rewards"]),
@@ -339,10 +376,14 @@ def make_central_train_step(model: Model, step_cfg: StepConfig, n_clients: int =
         hidden = hidden.detach()
         B = hidden.shape[0]
         C = min(n_clients, B)
-        hc = hidden.reshape(C, B // C, *hidden.shape[1:])
         tok = batch["tokens"]
-        tc = tok.reshape(C, B // C, *tok.shape[1:])
         head = {k: v for k, v in params.items() if k != "backbone"}
+        rows = spmd.Rows.of(hidden)
+        if rows is not None:  # each card pools the clients of its batch shard
+            hidden, tok, head = rows.local(hidden), rows.local(tok), tree_map(rows.params, head)
+            B, C = hidden.shape[0], C // rows.n_data
+        hc = hidden.reshape(C, B // C, *hidden.shape[1:])
+        tc = tok.reshape(C, B // C, *tok.shape[1:])
         pooled = []
         for c in range(C):
             h = hc[c].clone().requires_grad_(True)
@@ -350,6 +391,8 @@ def make_central_train_step(model: Model, step_cfg: StepConfig, n_clients: int =
                 (g,) = torch.autograd.grad(transformer.head_ce(head, cfg, h, tc[c]), h)
             pooled.append(torch.sum(g.float(), dim=tuple(range(g.dim() - 1))))  # (D,)
         pooled = torch.stack(pooled)  # (C, D)
+        if rows is not None:
+            pooled = rows.full(spmd.replicate_partial(pooled))
         dev = str(pooled.device)
         if dev not in proj_by_device:
             proj_by_device[dev] = rnd.rademacher(

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as rnd
+from repro_torch.utils import spmd
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +136,9 @@ def _dot(x: torch.Tensor, w: torch.Tensor, k: int, stacked: bool) -> torch.Tenso
     """Contract the last ``k`` axes of x with the first ``k`` axes of w (after
     w's row axis when ``stacked``: then x leads with the same rows and every
     row multiplies its own weights in one ``torch.bmm``)."""
+    w = spmd.weight(w)
+    if spmd.any_dtensor(x, w):
+        return spmd.dot(x, w, k, 1 if stacked else 0, lambda a, b: _dot(a, b, k, stacked))
     if stacked:
         R = w.shape[0]
         w_in, w_out = w.shape[1:1 + k], w.shape[1 + k:]
@@ -265,8 +269,10 @@ def _qkv(params, cfg: ModelConfig, x, positions):
 
 
 def attention_out(params, a: torch.Tensor) -> torch.Tensor:
-    """(..., H, hd) attention outputs through ``wo`` -> (..., D)."""
-    return _dot(a, params["wo"], 2, params["wo"].dim() == 4)
+    """(..., H, hd) attention outputs through ``wo`` -> (..., D). Split
+    heads leave a pending sum, all-reduced here (the row-parallel product's
+    all-reduce)."""
+    return spmd.replicate_partial(_dot(a, params["wo"], 2, params["wo"].dim() == 4))
 
 
 def _attn_block(cfg: ModelConfig, q_blk, k, v, offset: int, S: int, window: int):
@@ -301,14 +307,24 @@ def attention(params, cfg: ModelConfig, x, positions, window: int = -1):
     checkpointing, so only one block's (S x S/nb) scores live at a time
     (plain PyTorch, as the JAX package computes it outside any kernel).
     """
-    B, S, _ = x.shape
-    hd = cfg.hd
-    group = cfg.n_heads // cfg.n_kv_heads
     q, k, v = _qkv(params, cfg, x, positions)
-    # (B, S, n_kv, group, hd): the grouped query layout of the JAX package
-    q = q.reshape(B, S, cfg.n_kv_heads, group, hd)
     w = cfg.sliding_window if window == -1 else window
+    if spmd.is_dtensor(q):
+        # each card attends with its own heads (and batch rows), on its shards
+        q, k, v, pl = spmd.align_heads(q, k, v)
+        out = spmd.local(lambda q, k, v: _attn_heads(cfg, q, k, v, w), (q, k, v), pl, q.device_mesh)
+    else:
+        out = _attn_heads(cfg, q, k, v, w)
+    return attention_out(params, out)
 
+
+def _attn_heads(cfg: ModelConfig, q, k, v, w: int):
+    """q (B, S, H, hd), k and v (B, S, Hkv, hd) -> (B, S, H, hd): the query
+    blocks of causal GQA attention."""
+    B, S, H, hd = q.shape
+    n_kv = k.shape[2]
+    # (B, S, n_kv, group, hd): the grouped query layout of the JAX package
+    q = q.reshape(B, S, n_kv, H // n_kv, hd)
     qc = cfg.attn_qchunk
     if qc <= 0 or S <= qc:
         out = _attn_block(cfg, q, k, v, 0, S, w)
@@ -320,7 +336,7 @@ def attention(params, cfg: ModelConfig, x, positions, window: int = -1):
             for i in range(S // qc)
         ]
         out = torch.cat(outs, dim=1)
-    return attention_out(params, out.reshape(B, S, cfg.n_heads, hd))
+    return out.reshape(B, S, H, hd)
 
 
 def attention_decode(params, cfg: ModelConfig, x, cache, window: int = -1):
@@ -344,25 +360,75 @@ def attention_decode(params, cfg: ModelConfig, x, cache, window: int = -1):
 
     slot = torch.remainder(idx, C).to(torch.int64)
     ck, cv = cache["k"], cache["v"]
+    if spmd.is_dtensor(ck):
+        return _attention_decode_spmd(params, cfg, x, q, k, v, cache, slot, window)
     ck.index_copy_(1, slot.reshape(1), k.to(ck.dtype))
     cv.index_copy_(1, slot.reshape(1), v.to(cv.dtype))
 
     q = q.reshape(B, 1, cfg.n_kv_heads, group, hd)
     scores = torch.einsum("bsngk,btnk->bnsgt", q, ck).float() / math.sqrt(hd)
 
-    # valid slots: those already written (ring-aware); ring order does not
-    # matter to the softmax
-    t = torch.arange(C, device=x.device)
-    valid = t < torch.clamp(idx + 1, max=C)
-    w = cfg.sliding_window if window == -1 else window
-    if w and 0 < w < C:
-        # a ring sized >= the window: all written slots are within it
-        valid &= torch.remainder(slot - t, C) < w
+    valid = _decode_mask(cfg, idx, slot, C, window, x.device)
     scores = scores.masked_fill(~valid[None, None, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bnsgt,btnk->bsngk", probs, cv).reshape(B, 1, cfg.n_heads, hd)
     y = attention_out(params, out)
     return y, {"k": ck, "v": cv, "index": idx + 1}
+
+
+def _decode_mask(cfg: ModelConfig, idx, slot, C: int, window: int, device):
+    """The valid slots of a (ring) KV cache of C slots: those already
+    written; ring order does not matter to the softmax."""
+    t = torch.arange(C, device=device)
+    valid = t < torch.clamp(idx + 1, max=C)
+    w = cfg.sliding_window if window == -1 else window
+    if w and 0 < w < C:
+        # a ring sized >= the window: all written slots are within it
+        valid &= torch.remainder(slot - t, C) < w
+    return valid
+
+
+def _attention_decode_spmd(params, cfg: ModelConfig, x, q, k, v, cache, slot, window: int):
+    """``attention_decode`` on a DTensor KV cache, each card on its shard of
+    it: the new K/V are written into the card's shard, the scores of a
+    cache split on hd are partial sums (all-reduced, far smaller than the
+    cache), a split of the batch or the kv heads stays local. A cache split
+    on its sequence (``cache_spec(seq_shard=True)``) is not supported."""
+    ck, cv, idx = cache["k"], cache["v"], cache["index"]
+    mesh = ck.device_mesh
+    B, C, hd = x.shape[0], ck.shape[1], cfg.hd
+    if any(p.is_shard() and p.dim == 1 and mesh.size(i) > 1 for i, p in enumerate(ck.placements)):
+        raise NotImplementedError("SPMD decode of a sequence-split KV cache")
+    for c, new in ((ck, k), (cv, v)):
+        new = spmd.redistribute(spmd.replicate_partial(new.to(c.dtype)), c.placements)
+        spmd.local(lambda cl, nl, sl: cl.index_copy_(1, sl.reshape(1), nl), (c, new, slot), c.placements, mesh)
+    # q placed like the cache: batch (0), kv heads (2: q's heads split alike), hd (3)
+    q = spmd.redistribute(spmd.replicate_partial(q), ck.placements)
+    kinds = {i: p.dim for i, p in enumerate(ck.placements) if p.is_shard() and mesh.size(i) > 1}
+    score_pl = [spmd._shard({0: 0, 2: 1}[kinds[i]]) if kinds.get(i) in (0, 2)
+                else (spmd._partial() if kinds.get(i) == 3 else spmd._replicate()) for i in range(mesh.ndim)]
+
+    def scores_of(ql, kl):
+        b, _, h, d = ql.shape
+        n = kl.shape[2]
+        return torch.einsum("bsngk,btnk->bnsgt", ql.reshape(b, 1, n, h // n, d), kl).float()
+
+    scores = spmd.replicate_partial(spmd.local(scores_of, (q, ck), score_pl, mesh)) / math.sqrt(hd)
+    valid = _decode_mask(cfg, idx, slot, C, window, x.device)
+    scores = scores.masked_fill(~valid[None, None, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    probs = spmd.redistribute(probs, [p if p.is_shard() else spmd._replicate() for p in score_pl])
+    out_pl = [spmd._shard({0: 0, 2: 2, 3: 3}[kinds[i]]) if i in kinds else spmd._replicate()
+              for i in range(mesh.ndim)]
+
+    def values_of(pl, vl):
+        o = torch.einsum("bnsgt,btnk->bsngk", pl, vl)
+        return o.reshape(o.shape[0], 1, -1, o.shape[-1])
+
+    out = spmd.local(values_of, (probs, cv), out_pl, mesh)  # (B, 1, H, hd)
+    # heads, not hd, split for wo (an all-to-all of one token's outputs)
+    out = spmd.redistribute(out, [spmd._shard(2) if p.is_shard() and p.dim == 3 else p for p in out.placements])
+    return attention_out(params, out), {"k": ck, "v": cv, "index": idx + 1}
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device=None):
@@ -400,7 +466,7 @@ def mlp(params, x):
         h = h * _dot(x, params["wu"], 1, stacked)
     else:  # plain GELU (starcoder2); jax.nn.gelu's default is the tanh form
         h = F.gelu(_dot(x, params["wu"], 1, stacked), approximate="tanh")
-    return _dot(h, params["wd"], 1, stacked)
+    return spmd.replicate_partial(_dot(h, params["wd"], 1, stacked))
 
 
 # ---------------------------------------------------------------------------

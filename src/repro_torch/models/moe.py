@@ -38,6 +38,7 @@ from repro_torch.models.common import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.utils import spmd
 from repro_torch.utils.tree import tree_map
 
 
@@ -62,33 +63,57 @@ def _capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
     return min(cap, tokens_per_group)
 
 
+def _route_local(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor, reduce=torch.mean):
+    """``route`` on one card's groups: (weights, ids, and the aux terms'
+    ``reduce`` (mean, or sum for a card's share) over groups and tokens)."""
+    # in the router's dtype: float32 (a float64 reference run: float64)
+    logits = _dot(x.to(router.dtype), router, 1, router.dim() == 3)  # (..., G, T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = top[..., :cfg.top_k], order[..., :cfg.top_k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    # load-balance auxiliary loss (Switch) over the top-1 choices + router z-loss
+    me = reduce(probs, dim=(-3, -2))  # (..., E)
+    ce = reduce(F.one_hot(ids[..., 0], cfg.n_experts).float(), dim=(-3, -2))
+    z = reduce(torch.square(torch.logsumexp(logits, dim=-1)), dim=(-2, -1))
+    return weights, ids, me, ce, z
+
+
 def route(params, cfg: ModelConfig, x: torch.Tensor):
     """x: (G, T, D) grouped tokens, or (R, G, T, D) with a stacked router
     (R, D, E) -> (weights (..., G, T, k), ids (..., G, T, k), aux).
 
     Top-k keeps ``jax.lax.top_k``'s order: by probability, ties to the
     lower expert index (a stable descending sort; ``torch.topk`` does not
-    promise it)."""
-    stacked = params["router"].dim() == 3
-    # in the router's dtype: float32 (a float64 reference run: float64)
-    logits = _dot(x.to(params["router"].dtype), params["router"], 1, stacked)  # (..., G, T, E)
-    probs = torch.softmax(logits, dim=-1)
-    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    weights, ids = top[..., :cfg.top_k], order[..., :cfg.top_k]
-    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
-
-    # load-balance auxiliary loss (Switch) over the top-1 choices + router z-loss
-    me = torch.mean(probs, dim=(-3, -2))  # (..., E)
-    ce = torch.mean(F.one_hot(ids[..., 0], cfg.n_experts).float(), dim=(-3, -2))
+    promise it). On DTensor groups each card routes its own groups with the
+    whole (small) router; the aux terms' means over all groups come from
+    sums all-reduced over the group split."""
+    router = params["router"]
+    if spmd.is_dtensor(x):
+        mesh, gdim = x.device_mesh, x.dim() - 3
+        x = spmd.keep_shards(x, (0, gdim))
+        router = spmd.redistribute(spmd.weight(router), [spmd._replicate()] * mesh.ndim)
+        split = {i: p.dim for i, p in enumerate(x.placements) if p.is_shard()}
+        rows = list(x.placements)
+        sums = [spmd._partial() if split.get(i) == gdim else (spmd._shard(0) if split.get(i) == 0
+                                                              else spmd._replicate())
+                for i in range(mesh.ndim)]
+        weights, ids, *terms = spmd.local(lambda xl, rl: _route_local(cfg, xl, rl, torch.sum), (x, router),
+                                          [rows, rows, sums, sums, sums], mesh)
+        n = x.shape[-3] * x.shape[-2]
+        me, ce, z = (spmd.replicate_partial(t) / n for t in terms)
+    else:
+        weights, ids, me, ce, z = _route_local(cfg, x, router)
     lb_loss = cfg.n_experts * torch.sum(me * ce, dim=-1)
-    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)), dim=(-2, -1))
-    return weights, ids, {"lb_loss": lb_loss, "z_loss": z_loss}
+    return weights, ids, {"lb_loss": lb_loss, "z_loss": z}
 
 
-def dispatch(cfg: ModelConfig, xg: torch.Tensor, weights: torch.Tensor, ids: torch.Tensor):
+def dispatch(cfg: ModelConfig, xg: torch.Tensor, weights: torch.Tensor, ids: torch.Tensor,
+             experts_of: slice = slice(None)):
     """Tokens into expert slots. xg (R, G, Tg, D), weights/ids (R, G, Tg, k)
     -> (expert_in (R, E, G, cap, D), combine (R, G, Tg, E, cap) in x's
-    dtype, keep (R, G, Tg, k)).
+    dtype, keep (R, G, Tg, k)); ``experts_of`` keeps those experts' slots
+    only (a card's experts, E their count).
 
     A choice's slot is the count of earlier choices of its expert in the
     group, counted token-major over (Tg·k); choices at slot >= cap, or of
@@ -102,7 +127,7 @@ def dispatch(cfg: ModelConfig, xg: torch.Tensor, weights: torch.Tensor, ids: tor
     pos = (pos * flat).sum(-1).reshape(R, G, Tg, k)
     keep = (pos < cap) & (weights > 0)
 
-    oh_e = onehot.to(xg.dtype) * keep[..., None].to(xg.dtype)
+    oh_e = onehot[..., experts_of].to(xg.dtype) * keep[..., None].to(xg.dtype)
     # one_hot of a slot >= cap is all zeros (jax.nn.one_hot's rule)
     oh_c = (pos[..., None] == torch.arange(cap, device=xg.device)).to(xg.dtype)  # (R,G,Tg,k,cap)
     disp = torch.einsum("rgske,rgskc->rgsec", oh_e, oh_c)  # (R, G, Tg, E, cap)
@@ -115,9 +140,10 @@ def experts(params, expert_in: torch.Tensor) -> torch.Tensor:
     """The SwiGLU of every expert over its slots: expert_in (R, E, G, cap, D),
     params (R, E, D, F) / (R, E, F, D) -> (R, E, G, cap, D). Expert-major,
     so each product is one batched matmul over (R·E)."""
-    h = F.silu(torch.einsum("regcd,redf->regcf", expert_in, params["wg"]))
-    h = h * torch.einsum("regcd,redf->regcf", expert_in, params["wu"])
-    return torch.einsum("regcf,refd->regcd", h, params["wd"])
+    wg, wu, wd = (spmd.weight(params[k]) for k in ("wg", "wu", "wd"))
+    h = F.silu(torch.einsum("regcd,redf->regcf", expert_in, wg))
+    h = h * torch.einsum("regcd,redf->regcf", expert_in, wu)
+    return torch.einsum("regcf,refd->regcd", h, wd)
 
 
 def combine(comb: torch.Tensor, expert_out: torch.Tensor) -> torch.Tensor:
@@ -127,6 +153,7 @@ def combine(comb: torch.Tensor, expert_out: torch.Tensor) -> torch.Tensor:
 
 def group(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """(R, B, S, D) -> (R, B·S/Tg, Tg, D) routing groups, Tg = min(moe_group, S)."""
+    x = spmd.keep_shards(x, (0, 1))  # routing runs on each card's rows, all of D
     R, B, S, D = x.shape
     Tg = min(cfg.moe_group, S)
     if S % Tg:
@@ -142,12 +169,42 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor):
         return y[0], {k: v[0] for k, v in aux.items()}
     xg = group(cfg, x)
     weights, ids, aux = route(params, cfg, xg)
-    expert_in, comb, keep = dispatch(cfg, xg, weights, ids)
-    y = combine(comb, experts(params, expert_in))
+    if spmd.is_dtensor(xg):
+        y, keep = _moe_spmd(params, cfg, xg, weights, ids)
+    else:
+        expert_in, comb, keep = dispatch(cfg, xg, weights, ids)
+        y = combine(comb, experts(params, expert_in))
     if cfg.shared_expert:
         y = y + mlp(params["shared"], xg)
     aux = dict(aux, frac_dropped=1.0 - torch.mean(keep.float(), dim=(1, 2, 3)))
     return y.reshape(x.shape), aux
+
+
+def _moe_spmd(params, cfg: ModelConfig, xg, weights, ids):
+    """Dispatch, experts and combine on DTensors, each card on its own
+    experts: it slots its groups' tokens (replicated over ``model``) into
+    its experts only, runs them and combines their outputs, a pending sum
+    over the expert split that is all-reduced (the program GSPMD gives
+    expert-sharded weights and tokens replicated over the expert axis; in
+    the backward the tokens' gradient is that sum's all-reduce, never a
+    gather of the slot buffers). Expert weights split on another dim over a
+    mesh dim are gathered there first. Returns (y, keep)."""
+    mesh = xg.device_mesh
+    w = {k: spmd.weight(params[k]) for k in ("wg", "wu", "wd")}
+    edims = [i for i, p in enumerate(w["wg"].placements) if p == spmd._shard(1) and mesh.size(i) > 1]
+    w = {k: spmd.redistribute(v, [spmd._shard(1) if i in edims else spmd._replicate()
+                                  for i in range(mesh.ndim)]) for k, v in w.items()}
+    rows = [spmd._replicate() if i in edims else p for i, p in enumerate(xg.placements)]
+    xg, weights, ids = (spmd.redistribute(spmd.replicate_partial(t), rows) for t in (xg, weights, ids))
+    e0, n_local = spmd.shard_offset(w["wg"], 1), w["wg"].to_local().shape[1]
+
+    def fn(x, wt, i, wg, wu, wd):
+        expert_in, comb, keep = dispatch(cfg, x, wt, i, slice(e0, e0 + n_local))
+        return combine(comb, experts({"wg": wg, "wu": wu, "wd": wd}, expert_in)), keep
+
+    out = [spmd._partial() if i in edims else p for i, p in enumerate(rows)]
+    y, keep = spmd.local(fn, (xg, weights, ids, w["wg"], w["wu"], w["wd"]), [out, rows], mesh)
+    return spmd.replicate_partial(y), keep
 
 
 def moe_block_init(key, cfg: ModelConfig):

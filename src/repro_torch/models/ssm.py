@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch import random as rnd
 from repro_torch.models.common import ModelConfig, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.utils import spmd
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -214,6 +215,8 @@ def _mamba2_out(params, cfg: ModelConfig, x, y, z):
 
 def mamba2_apply(params, cfg: ModelConfig, x):
     """x: (B, L, D) -> (B, L, D). Training path (chunked SSD)."""
+    if spmd.is_dtensor(x):  # no split over 'model': each card runs the whole layer
+        return spmd.whole_layer(lambda p, x: mamba2_apply(p, cfg, x), params, x)
     d_inner, H, P, N = mamba2_dims(cfg)
     z, xin, Bc, Cc, dt, a, _ = _mamba2_in(params, cfg, x)
     b, l, _ = x.shape
@@ -236,6 +239,8 @@ def mamba2_cache_init(cfg: ModelConfig, batch: int, dtype=None, device=None) -> 
 
 def mamba2_decode(params, cfg: ModelConfig, x, cache):
     """x: (B, 1, D); O(1) recurrent update. Returns (out, new cache)."""
+    if spmd.is_dtensor(x):  # no split over 'model': each card runs the whole layer
+        return spmd.whole_layer(lambda p, x, c: mamba2_decode(p, cfg, x, c), params, x, cache)
     d_inner, H, P, N = mamba2_dims(cfg)
     z, xin, Bc, Cc, dt, a, new_conv = _mamba2_in(params, cfg, x, cache["conv"])
     b = x.shape[0]
@@ -298,6 +303,8 @@ def _mlstm_out(params, cfg: ModelConfig, x, y, gate):
 def mlstm_apply(params, cfg: ModelConfig, x):
     """x: (B, L, D) -> (B, L, D): numerator and denominator as two chunked
     SSD scans, ``num / max(|den|, 1)``."""
+    if spmd.is_dtensor(x):  # no split over 'model': each card runs the whole layer
+        return spmd.whole_layer(lambda p, x: mlstm_apply(p, cfg, x), params, x)
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
     q, k, v, ig, a, gate = _mlstm_qkvg(params, cfg, h)
     gain = ig[..., None].to(v.dtype)
@@ -318,6 +325,8 @@ def mlstm_cache_init(cfg: ModelConfig, batch: int, dtype=None, device=None) -> D
 
 
 def mlstm_decode(params, cfg: ModelConfig, x, cache):
+    if spmd.is_dtensor(x):  # no split over 'model': each card runs the whole layer
+        return spmd.whole_layer(lambda p, x, c: mlstm_decode(p, cfg, x, c), params, x, cache)
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
     q, k, v, ig, a, gate = _mlstm_qkvg(params, cfg, h)
     q, k, v, ig, a = q[:, 0], k[:, 0], v[:, 0], ig[:, 0], a[:, 0]
@@ -407,6 +416,8 @@ def _wx(params, cfg: ModelConfig, x):
 
 def slstm_apply(params, cfg: ModelConfig, x):
     """x: (B, L, D) -> (B, L, D): the cell over time, then the GLU FFN."""
+    if spmd.is_dtensor(x):  # no split over 'model': each card runs the whole layer
+        return spmd.whole_layer(lambda p, x: slstm_apply(p, cfg, x), params, x)
     b, l, d = x.shape
     wx = _wx(params, cfg, x)
     r_mat = _r_matrix(params["r"])
@@ -419,5 +430,7 @@ def slstm_apply(params, cfg: ModelConfig, x):
 
 
 def slstm_decode(params, cfg: ModelConfig, x, cache):
+    if spmd.is_dtensor(x):  # no split over 'model': each card runs the whole layer
+        return spmd.whole_layer(lambda p, x, c: slstm_decode(p, cfg, x, c), params, x, cache)
     new = slstm_cell(params["r"], _wx(params, cfg, x)[:, 0], cache)
     return _slstm_ffn(params, cfg, x, new["h"].reshape(x.shape[0], 1, -1)), new

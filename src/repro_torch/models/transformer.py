@@ -55,6 +55,7 @@ from repro_torch.models.common import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.utils import spmd
 from repro_torch.utils.tree import tree_map
 
 Params = Dict[str, Any]
@@ -67,12 +68,21 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     """tokens (...) -> (..., D). With a stacked (R, V, D) table, tokens lead
     with R and each row looks up its own table. Audio: tokens (B, nc, S) and
     a (nc, V, D) table; the codebooks' embeddings are summed in order."""
-    emb = params["embed"]
+    # a vocab-split table's lookup is a pending sum over the shards (its
+    # all-reduce), a D-split one's is gathered: the residual stream starts
+    # whole on every card of a data group
+    x = _lookup(spmd.weight(params["embed"]), cfg, tokens)
+    return spmd.keep_shards(x, range(x.dim() - 1))
+
+
+def _lookup(emb, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.n_codebooks:
         x = F.embedding(tokens[:, 0], emb[0])
         for c in range(1, cfg.n_codebooks):
             x = x + F.embedding(tokens[:, c], emb[c])
         return x
+    if spmd.is_dtensor(emb) and emb.dim() == 2:
+        return spmd.vocab_lookup(emb, tokens)
     if emb.dim() == 3:
         R = emb.shape[0]
         rows = torch.arange(R, device=tokens.device).reshape((R,) + (1,) * (tokens.dim() - 1))
@@ -90,7 +100,8 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         head = params["embed"].transpose(-1, -2)
     else:
         head = params["head"]
-    logits = _dot(x, head, 1, stacked)
+    # a head split on D (a vocab no card count divides) leaves partial logits
+    logits = spmd.replicate_partial(_dot(x, head, 1, stacked))
     if cfg.padded_vocab > cfg.vocab:
         # mask the pad slots
         pad_bias = torch.where(
@@ -307,8 +318,11 @@ def _ce_block(params, cfg: ModelConfig, h_blk, tgt_blk, mask_blk):
     """CE summed over one token block. h_blk: (B, T, D); tgt (B, T) (audio:
     (B, T, nc), the CE averaged over the codebooks); mask (B, T)."""
     lg = lm_logits(params, cfg, h_blk).float()
-    lse = torch.logsumexp(lg, dim=-1)
-    pick = torch.gather(lg, -1, tgt_blk[..., None])[..., 0]
+    if spmd.is_dtensor(lg):
+        lse, pick = spmd.logsumexp_and_pick(lg, tgt_blk)
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        pick = torch.gather(lg, -1, tgt_blk[..., None])[..., 0]
     per_tok = lse - pick
     if cfg.n_codebooks:
         per_tok = torch.mean(per_tok, dim=-1)
@@ -335,9 +349,9 @@ def head_ce(params, cfg: ModelConfig, hidden, tokens):
         return total / torch.clamp(mask.sum(), min=1.0)
 
     pad = (-Sm1) % T
-    h = F.pad(h, (0, 0, 0, pad))
-    tgt = F.pad(tgt, (0, 0) * (tgt.dim() - 2) + (0, pad))
-    mask_p = F.pad(mask, (0, pad))
+    h = spmd.pad(h, (0, 0, 0, pad))
+    tgt = spmd.pad(tgt, (0, 0) * (tgt.dim() - 2) + (0, pad))
+    mask_p = spmd.pad(mask, (0, pad))
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(h.shape[1] // T):
         sl = slice(i * T, (i + 1) * T)

@@ -131,6 +131,18 @@ def rademacher(k, shape, dtype=torch.float32) -> torch.Tensor:
     return (1 - 2 * top).to(dtype)
 
 
+def rademacher_rows(k, block: int, rows: torch.Tensor, d: int, dtype=torch.float32) -> torch.Tensor:
+    """Rows of the ±1 matrices ``rademacher(fold_in(k, i), (block, d))``:
+    global row f (an int64 tensor (n,)) is row ``f % block`` of block
+    ``f // block``. (n, d), equal to those rows of the whole draws (each
+    element's bits come from its own counter, so a card can draw its own
+    rows alone)."""
+    kb1, kb2 = threefry2x32(k[..., 0], k[..., 1], 0, rows // block)  # fold_in, per row
+    ctr = (rows % block)[:, None] * d + torch.arange(d, dtype=torch.int64, device=rows.device)
+    b1, b2 = threefry2x32(kb1[:, None], kb2[:, None], 0, ctr)
+    return (1 - 2 * ((b1 ^ b2) >> 31)).to(dtype)
+
+
 def normal(k, shape) -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(k, shape, lo, 1.0)

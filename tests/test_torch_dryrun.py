@@ -2,8 +2,9 @@
 on the CPU: the roofline at the H100's constants and the collective sums
 against the JAX package's ``tests/test_hlo.py`` sample, the tree helpers
 against the JAX package's, and a mini dry run of reduced granite,
-qwen3-moe and zamba2 on a (2, 2) mesh of the fake process group, every
-step on fake tensors. Also: ``clustering_update`` keeps its bits after it
+qwen3-moe and zamba2 on a (2, 2) mesh of the fake process group (the SPMD
+probe: every step one program over the mesh, on fake tensors), and on a
+(1, 1) mesh, where it records no collective. Also: ``clustering_update`` keeps its bits after it
 stopped indexing with a tensor scalar, and a fake CUDA tensor takes the
 kernels' shape rules, never a launch or a plain version."""
 import numpy as np
@@ -43,12 +44,11 @@ def test_roofline_terms_and_bottleneck_at_h100_constants():
     r3 = hlo.Roofline(flops=0.0, bytes_accessed=0.0, coll_bytes=900e9 * 3, coll_by_op={})
     assert r3.collective_s == 3.0 and r3.bottleneck == "collective"
     assert hlo.peak_flops(torch.bfloat16) == 989e12 and hlo.peak_flops(torch.float32) == 67e12
-    # collectives not measured: null with its reason, the bottleneck over the measured terms
-    r4 = hlo.Roofline(flops=67e12, bytes_accessed=3.35e12 * 2, coll_bytes=None, coll_by_op=None,
-                      peak_flops=hlo.PEAK_FLOPS_F32, collectives="not measured: why")
+    # float32's peak, and the bottleneck over all three terms
+    r4 = hlo.Roofline(flops=67e12, bytes_accessed=3.35e12 * 2, coll_bytes=900e9 * 1.5, coll_by_op={},
+                      peak_flops=hlo.PEAK_FLOPS_F32)
     d = r4.as_dict()
-    assert d["collective_s"] is None and d["collectives"] == "not measured: why"
-    assert d["compute_s"] == 1.0 and d["bottleneck"] == "memory"
+    assert d["collective_s"] == 1.5 and d["compute_s"] == 1.0 and d["bottleneck"] == "memory"
 
 
 def test_tree_helpers_match_the_reference():
@@ -73,13 +73,25 @@ def test_tree_helpers_match_the_reference():
 
 
 # ------------------------------------------------ the mini dry run
-@pytest.fixture(scope="module")
-def mesh22():
+@pytest.fixture(scope="module", autouse=True)
+def _fake_world():
     import torch.distributed as dist
 
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.fixture
+def mesh22():
     lmesh.init_fake_world(4)
-    yield lmesh.make_mesh((2, 2), ("data", "model"), dryrun.fake_device())
-    dist.destroy_process_group()
+    return lmesh.make_mesh((2, 2), ("data", "model"), dryrun.fake_device())
+
+
+@pytest.fixture
+def mesh11():
+    lmesh.init_fake_world(1)
+    return lmesh.make_mesh((1, 1), ("data", "model"), dryrun.fake_device())
 
 
 def _mini_cfg(arch):
@@ -102,24 +114,64 @@ def test_mini_dry_run_plans_train_and_serve(mesh22, arch):
     assert plan["flops_probe"] > 0 and plan["roofline"]["flops_per_device"] > 0
     assert plan["plan_bytes"] >= plan["state_bytes"] > 0 and plan["step_peak_bytes"] > 0
     assert plan["fits"]
-    roof = plan["roofline"]
-    assert roof["collective_s"] is None and roof["coll_bytes_per_device"] is None
-    assert roof["collectives"].startswith("not measured") and roof["bottleneck"] in ("compute", "memory")
-    serve = dryrun.plan_step(cfg, "decode", {"tokens": SDS((8, 1), torch.int32)}, mesh22, "tp", MINI_STEP,
-                             cache_len=64)
+    # the sharded step communicates (the reference's mini test asserts coll > 0)
+    for p in (plan, dryrun.plan_step(cfg, "decode", {"tokens": SDS((8, 1), torch.int32)}, mesh22, "tp",
+                                     MINI_STEP, cache_len=64)):
+        roof = p["roofline"]
+        assert roof["coll_bytes_per_device"] > 0 and roof["collective_s"] > 0 and min(p["probes"]["n_collectives"]) > 0
+        assert sum(roof["coll_by_op"].values()) > 0 and "collectives" not in roof
+        terms = {k: roof[f"{k}_s"] for k in ("compute", "memory", "collective")}
+        assert roof["bottleneck"] == max(terms, key=terms.get)
+    serve = p
     assert serve["state_by_part"]["cache"] > 0 and serve["plan_bytes"] >= serve["state_bytes"]
     assert serve["flops_probe"] > 0
 
 
+@pytest.mark.parametrize("kind, batch, policy", [("train", MINI_BATCH, "tp"),
+                                                 ("train", {"tokens": SDS((8, 32), torch.int32)}, "fsdp"),
+                                                 ("prefill", {"tokens": SDS((4, 32), torch.int32)}, "tp"),
+                                                 ("decode", {"tokens": SDS((8, 1), torch.int32)}, "tp")])
+def test_one_card_mesh_records_no_collective(mesh11, kind, batch, policy):
+    """On a (1, 1) mesh the SPMD probe records exactly 0 collectives, and
+    its FLOPs are the plain (one-device) probe's."""
+    cfg = _mini_cfg("granite_3_2b")
+    plan = dryrun.plan_step(cfg, kind, batch, mesh11, policy, MINI_STEP, cache_len=64)
+    roof = plan["roofline"]
+    assert plan["probes"]["n_collectives"] == [0, 0] and roof["coll_bytes_per_device"] == 0
+    assert roof["collective_s"] == 0.0 and roof["bottleneck"] in ("compute", "memory")
+    one = dryrun.probe_step(dryrun._with_units(cfg, 1), kind, batch, MINI_STEP, kind == "train" and policy == "fsdp",
+                            cache_len=64)
+    assert plan["probes"]["flops"][0] == one.flops and one.collectives == ()
+
+
 def test_extrapolation_equals_a_direct_three_unit_count(mesh22):
     """granite's 1- and 2-unit probes, extrapolated to 3 units, give the
-    FLOPs and the step peak of a 3-unit probe."""
+    FLOPs and the collective bytes (by op and weighted) of a 3-unit probe;
+    the step peak is the plan's own 3-unit probe's."""
     cfg = _mini_cfg("granite_3_2b")
     plan = dryrun.plan_step(cfg.replace(n_layers=3), "train", MINI_BATCH, mesh22, "tp", MINI_STEP)
-    local = dryrun._local_batch(MINI_BATCH, mesh22, seq_shard=False)
-    direct = dryrun.probe_step(dryrun._with_units(cfg, 3), "train", local, MINI_STEP)
+    direct = dryrun.probe_step(dryrun._with_units(cfg, 3), "train", MINI_BATCH, MINI_STEP, mesh=mesh22, policy="tp")
     assert plan["probes"]["n_units"] == 3
     assert plan["flops_probe"] == direct.flops
+    assert plan["step_peak_bytes"] == direct.step_peak_bytes
+    coll = hlo.collective_bytes(direct.collectives)
+    assert plan["roofline"]["coll_bytes_per_device"] == coll["total_weighted"] > 0
+    assert plan["roofline"]["coll_by_op"] == {k: v for k, v in coll.items() if k != "total_weighted"}
+
+
+def test_step_peak_takes_the_largest_per_unit_step(mesh22):
+    """Past 2 units the plan probes 3 units too and extrapolates the step
+    peak from the last probe by the largest per-unit step, so a peak whose
+    growth rises with depth (one moment of the step overtaking another) is
+    not planned below it; at 4 units the mini granite plan equals a direct
+    4-unit probe."""
+    assert dryrun._extrap_peak([10.0, 12.0, 17.0], 8) == 17.0 + 5 * 5.0
+    assert dryrun._extrap_peak([10.0, 16.0, 17.0], 8) == 17.0 + 5 * 6.0
+    assert dryrun._extrap_peak([10.0, 12.0], 3) == dryrun._extrap(10.0, 12.0, 3) == 14.0
+    cfg = _mini_cfg("granite_3_2b")
+    plan = dryrun.plan_step(cfg.replace(n_layers=4), "train", MINI_BATCH, mesh22, "tp", MINI_STEP)
+    direct = dryrun.probe_step(dryrun._with_units(cfg, 4), "train", MINI_BATCH, MINI_STEP, mesh=mesh22, policy="tp")
+    assert plan["probes"]["units"] == [1, 2, 3] and plan["probes"]["n_units"] == 4
     assert plan["step_peak_bytes"] == direct.step_peak_bytes
 
 

@@ -26,6 +26,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.checkpoint.npz\n"
         "import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.checkpoint.run_state\n"
         "import repro_torch.launch.specs, repro_torch.launch.dryrun, repro_torch.utils.hlo, repro_torch.utils.tree\n"
+        "import repro_torch.launch.profile, repro_torch.utils.spmd\n"
         "import repro_torch.scale, repro_torch.data.plane, repro_torch.fl.baselines\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

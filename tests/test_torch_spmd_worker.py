@@ -1,0 +1,176 @@
+"""One rank of the SPMD steps on a CPU ``gloo`` group.
+
+Run as ``python tests/test_torch_spmd_worker.py RANK WORLD PORT OUT ARCH
+KINDS`` by ``tests/test_torch_profile.py`` (four ranks, a (2, 2) mesh of
+("data", "model")). KINDS is a comma-separated list of:
+
+- ``train``: the federated train step, params under ``tp``;
+- ``central``: the centralized train step, params under ``fsdp``;
+- ``prefill``: the serving prefill, params under ``tp``;
+- ``decode``: two decode steps from a prefilled cache (random K/V and
+  recurrent states, an index past the first slots) placed by
+  ``cache_shardings``, params under ``tp``.
+
+Yogi's m and v are placed under ``fsdp``, the clustering state replicated
+and the batch over ``data``, as the dry run's SPMD probe places them.
+Every rank runs each step on the DTensors; rank 0 then runs the same step
+on one device (plain tensors of the same values) and saves both results,
+as full tensors, to OUT.
+"""
+import sys
+
+import numpy as np
+import torch
+
+C, M, S = 4, 2, 16  # clients x sequences x tokens of the train steps
+PRE = 5  # cache slots filled before the decode steps
+
+
+def config(arch: str):
+    from repro_torch.configs import get_config, reduce_config
+
+    cfg = reduce_config(get_config(arch)).replace(d_model=64, n_heads=4, n_kv_heads=2, vocab=128, d_ff=128,
+                                                  attn_qchunk=8, ce_chunk=8)
+    return cfg.replace(n_layers=2) if cfg.family != "hybrid" else cfg.replace(ssm_heads=4)
+
+
+def _place(full, mesh, placements):
+    """Each rank's shard of ``full`` (nested chunks in mesh order)."""
+    from repro_torch.utils import spmd
+
+    local = full
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            local = local.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(i)]
+    return spmd.from_local(local.contiguous().clone(), mesh, placements)
+
+
+def _full(t):
+    from repro_torch.utils import spmd
+
+    return t.full_tensor() if spmd.is_dtensor(t) else t.clone()
+
+
+def _tokens(shape, vocab, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32))
+
+
+def run_train(step, params, opt, clust, batch):
+    """(params, clust, metrics, assignments) of one train step, as full tensors."""
+    from repro_torch.launch import steps
+    from repro_torch.utils.tree import tree_map
+
+    seen = {}
+    orig = steps.clustering_update
+
+    def update(state, sketches, ema=0.3):
+        out = orig(state, sketches, ema)
+        seen["assign"], seen["sketches"] = out[1]["assign"], sketches
+        return out
+
+    steps.clustering_update = update
+    try:
+        p, _, c, metrics = step(params, opt, clust, batch)
+    finally:
+        steps.clustering_update = orig
+    return {"params": tree_map(_full, p), "clust": tree_map(_full, c), "metrics": tree_map(_full, metrics),
+            "assign": _full(seen["assign"]), "sketches": _full(seen["sketches"])}
+
+
+def _prefilled_cache(model, B, seed=1):
+    """A cache of ``B`` rows whose float leaves hold random values and whose
+    indices stand at ``PRE``: the state a prefill of PRE tokens leaves."""
+    from repro_torch.utils.tree import tree_map
+
+    g = torch.Generator().manual_seed(seed)
+    cache = model.init_cache(B, S, device="cpu")
+
+    def fill(a):
+        if a.dtype.is_floating_point:
+            return (0.5 * torch.randn(a.shape, generator=g, dtype=torch.float32)).to(a.dtype)
+        return torch.full_like(a, PRE)
+
+    return tree_map(fill, cache)
+
+
+def case(kind, model, step_cfg, mesh):
+    """(SPMD result, one-device result or None on ranks other than 0)."""
+    from repro_torch import random as rnd
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.utils.tree import tree_map
+
+    cfg = model.cfg
+    params = model.init(rnd.key(0), device="cpu")
+    policy = "fsdp" if kind == "central" else "tp"
+    d_params = tree_map(lambda a, p: _place(a, mesh, p), params, shd.param_shardings(params, mesh, policy))
+    one_params = tree_map(torch.clone, params)
+    rank0 = torch.distributed.get_rank() == 0
+
+    def batch_of(batch):
+        pl = shd.batch_shardings(batch, mesh)
+        return {k: _place(a, mesh, pl[k]) for k, a in batch.items()}
+
+    if kind in ("train", "central"):
+        opt = steps.yogi_init(params)
+        clust = steps.clustering_init(step_cfg.cluster_k, step_cfg.d_sketch, device="cpu")
+        batch = {"tokens": _tokens((C, M, S) if kind == "train" else (C * M, S), cfg.vocab)}
+        opl = shd.param_shardings(params, mesh, "fsdp")
+        d_opt = {k: tree_map(lambda a, p: _place(a, mesh, p), v, opl) for k, v in opt.items()}
+        d_clust = tree_map(lambda a: _place(a, mesh, shd.replicated(mesh)), clust)
+        one = [tree_map(torch.clone, t) for t in (opt, clust, batch)]
+        make = (steps.make_train_step(model, step_cfg) if kind == "train"
+                else steps.make_central_train_step(model, step_cfg, n_clients=C))
+        got = run_train(make, d_params, d_opt, d_clust, batch_of(batch))
+        return got, (run_train(make, one_params, *one) if rank0 else None)
+    if kind == "prefill":
+        batch = {"tokens": _tokens((C, S), cfg.vocab)}
+        step = steps.make_prefill_step(model, step_cfg)
+        got = {"logits": _full(step(d_params, batch_of(batch)))}
+        return got, ({"logits": step(one_params, batch)} if rank0 else None)
+    # decode: two steps from a prefilled cache
+    cache = _prefilled_cache(model, C)
+    d_cache = tree_map(lambda a, p: _place(a, mesh, p), cache, shd.cache_shardings(cache, C, mesh))
+    one_cache = tree_map(torch.clone, cache)
+    step = steps.make_serve_step(model, step_cfg)
+    out = {"spmd": {}, "one": {}}
+    for t in range(2):
+        batch = {"tokens": _tokens((C, 1), cfg.vocab, seed=10 + t)}
+        logits, d_cache = step(d_params, d_cache, batch_of(batch))
+        out["spmd"][f"logits{t}"] = _full(logits)
+        if rank0:
+            logits, one_cache = step(one_params, one_cache, batch)
+            out["one"][f"logits{t}"] = logits
+    out["spmd"]["cache"] = tree_map(_full, d_cache)
+    out["one"]["cache"] = one_cache
+    return out["spmd"], (out["one"] if rank0 else None)
+
+
+def main(rank: int, world: int, port: int, out: str, arch: str, kinds: str = "train"):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import steps
+    from repro_torch.models.zoo import build_model
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+        model = build_model(config(arch))
+        step_cfg = steps.StepConfig(d_sketch=32)
+        res = {}
+        for kind in kinds.split(","):
+            with implicit_replication():
+                got, want = case(kind, model, step_cfg, mesh)
+            res[kind] = {"spmd": got, "one": want}
+        if rank == 0:
+            torch.save(res, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], *sys.argv[6:7])
