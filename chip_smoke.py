@@ -15,6 +15,8 @@
     python3 chip_smoke.py --placement     # build + a warm-up run + phase 15 alone
     python3 chip_smoke.py --launch        # build + phase 16 (its two steps run for their peaks)
     python3 chip_smoke.py --spmd          # build + phase 16 + phase 17
+    python3 chip_smoke.py --maverick      # build + phase 18 alone, its step at
+        # the full 48 layers
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -147,6 +149,23 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      counted from 0, and every segment-kernel call on the local shards
      bit-equal to the plain version on a CPU copy. The fake group moves no
      data, so the round's loss is not held.
+ 18. llama4-maverick-400b-a17b at full width (bf16, as the dry run plans
+     ``train_4k``): (a) one MoE layer's ``moe/wg`` (128, 5120, 8192) float32
+     drawn whole on the card by ``dense_init`` (a chunk at a time): at most
+     1 GB besides its 21.47 GB output; rows of experts 0, 102 (where the
+     threefry counters pass 2**32), 103 and 127 drawn alone on the card
+     bit-equal, and on a CPU copy of the key with equal threefry bits and
+     values within ``ERFINV_ULP`` (the devices' erfinv differ); (b) the
+     blocks of mesh coordinates (0, 15) and (0, 0) of the 16 x 16 mesh under
+     ``fsdp`` drawn alone (``Model.init_local``), each leaf's first and last
+     block rows held likewise; (c) ``train_4k``'s central step (depth cut to
+     8 of 48 layers; ``--maverick`` runs all 48) as rank 0 of a 256-rank
+     fake world on rank 0's real blocks: plan / measured >= 0.9, the
+     collectives equal to the fake probe's, both kernels' launches counted
+     from 0 over two steps (the segment kernel's bit-equal to the plain
+     version on a CPU copy, the cosine's 0), the second step's seconds
+     beside the plan's roofline, and the card's busy share under the
+     profiler. The fake group moves no data: the loss is not held.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -164,6 +183,11 @@ the aggregation then frees each delta leaf as FedYoGi takes it (three
 2.8 GB temporaries on ``w_up``): ~50-56 GB. Phase 14c: zamba2-7b at
 depth 39 is 3,475,767,600 params; params, m, v and gradients are 55.6 GB
 (at depth 81, 108 GB: the cut's reason).
+Memory plan of phase 18c: rank 0's state at 8 layers is 2.13 GB (3.11 GB
+of bf16 params and 9.33 GB of Yogi's m and v at 48), and the step peak
+~35.8 GB, most of it the attention's f32 blocks (16 x 8 x 512 x 5 x 4096,
+5.37 GB each) and the softmax backward's scratch: ~38 GB at 8 layers, ~51
+GB planned at 48.
 The last three lines are a JSON kernel report, the card's name and power
 limit, and the JSON result line.
 Imports nothing of JAX or of the JAX package.
@@ -3383,14 +3407,6 @@ def _rank0_shard(full, mesh, placements, spmd):
     return spmd.from_local(local.contiguous().clone(), mesh, placements)
 
 
-def _local_shape(shape, placements, mesh):
-    out = list(shape)
-    for i, p in enumerate(placements):
-        if p.is_shard():
-            out[p.dim] //= mesh.size(i)
-    return tuple(out)
-
-
 def checked_segments(torch, ops, ref, log: list):
     """Wrap ``ops.segment_aggregate``: each call on plain CUDA tensors (a
     card's local shards) is held bit-equal to the plain version on a CPU
@@ -3429,7 +3445,7 @@ def spmd_round(torch, card, ops, ref, cs, sa) -> dict:
 
     from repro_torch import random as rnd
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import dryrun, local, steps
     from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.specs import SDS
@@ -3455,16 +3471,11 @@ def spmd_round(torch, card, ops, ref, cs, sa) -> dict:
         full = model.init(rnd.key(0), device="cuda")
         params = tree_map(lambda a, p: _rank0_shard(a, mesh, p, spmd), full,
                           shd.param_shardings(full, mesh, "tp"))
-        opl = shd.param_shardings(full, mesh, "fsdp")
         del full
         gc.collect()
         torch.cuda.empty_cache()
-        # Yogi's m and v under fsdp, as steps.yogi_init fills them
-        opt = {name: tree_map(lambda a, p, fill=fill: spmd.from_local(
-            torch.full(_local_shape(a.shape, p, mesh), fill, dtype=torch.float32 if name == "v" else a.dtype,
-                       device="cuda"), mesh, p), params, opl) for name, fill in (("m", 0.0), ("v", 1e-6))}
-        repl = shd.replicated(mesh)
-        clust = tree_map(lambda a: spmd.from_local(a, mesh, repl), steps.clustering_init(2, 128, device="cuda"))
+        # Yogi's m and v under fsdp and the replicated clustering state, at local shape
+        opt, clust = local.train_state(params, mesh, 2, 128, device="cuda")
         toks = torch.from_numpy(synth_corpus(LM_C, LM_M, LM_S, cfg.vocab)[0]).cuda()
         batch = {"tokens": _rank0_shard(toks, mesh, shd.batch_shardings({"tokens": toks}, mesh)["tokens"], spmd)}
         step = steps.make_train_step(model, sc)
@@ -3533,6 +3544,322 @@ def spmd_phase(torch, card, plans16, ops, ref, cs, sa) -> dict:
     secs = time.perf_counter() - t0
     print(f"[spmd] phase 17 took {secs:.1f} s", flush=True)
     return {"profiles": prof, "round": rnd_, "seconds": secs, "launches": rnd_["launches"]}
+
+
+# ------------------------------- phase 18: llama4-maverick at full width
+MAVERICK = "llama4-maverick-400b-a17b"
+MAV_LAYERS = 8  # 18c's default depth: 4 of 24 dense/MoE pairs (the plan probes 1, 2 and 3 pairs)
+MAV_FULL = 48  # ``--maverick``: the whole depth
+MAV_MESH = (16, 16)  # the reference's production (data, model) mesh, ``fsdp`` (dryrun.FSDP_ARCHS)
+MAV_RANKS = ((0, 15), (0, 0))  # 18b's mesh coordinates: the last model rank, then rank 0 (18c's)
+MAV_LEAF = (128, 5120, 8192)  # one MoE layer's ``moe/wg``: 5,368,709,120 values, 21.47 GB in float32
+MAV_LEAF_SLACK = 1e9  # 18a: what the draw may allocate besides its output
+# card vs CPU: the draws' bits are equal, but torch's erfinv is CUDA's
+# erfinvf on the card and its own on the CPU, which differ by up to 2 ulp on
+# one uniform (on an H100: 1,471,250 of 4,194,304 values), up to 4 after
+# the sqrt(2) and scale products; a value may differ by this many ulp
+ERFINV_ULP = 8
+
+
+def mav_cfg(layers: int):
+    """llama4-maverick-400b-a17b as the dry run plans ``train_4k``: bf16."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.specs import effective_config
+
+    return effective_config(get_config(MAVERICK), SHAPES["train_4k"]).replace(dtype=torch.bfloat16,
+                                                                               n_layers=layers)
+
+
+def bit_gap(torch, got, want) -> tuple:
+    """(elements whose bits differ, the largest distance in units in the
+    last place) of two float tensors of one dtype on the CPU."""
+    iv = torch.int16 if got.element_size() == 2 else torch.int32
+    a, b = got.reshape(-1).view(iv).long(), want.reshape(-1).view(iv).long()
+    d = (a - b).abs()
+    return int((d > 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def mav_leaf(torch) -> dict:
+    """18a: one MoE layer's ``moe/wg`` drawn whole on the card by
+    ``dense_init`` (a chunk at a time), its allocation beyond the output
+    bounded; rows of experts 0, 102 (where the counters' high word turns
+    1), 103 and 127 held against the same rows drawn alone (``rnd.Shard``):
+    on the card bit-equal, on a CPU copy of the key bit-equal in their
+    threefry bits and within ``ERFINV_ULP`` in value."""
+    from repro_torch import random as rnd
+    from repro_torch.models.common import deferred_draws, dense_init
+
+    # the key model_init draws layer 0's moe/wg from: split(key, 3)[1] (the
+    # backbone), split(., 8)[1] (moe_blocks), split(., n)[0] (layer 0: a
+    # layer's key does not depend on n), split(., 2)[1] (the MoE), split(., 5)[1] (wg)
+    k = rnd.key(0)
+    for num, i in ((3, 1), (8, 1), (1, 0), (2, 1), (5, 1)):
+        k = rnd.split(k, num)[i]
+    E, D, F = MAV_LEAF
+    row = 2**32 // F  # global row whose first counter is 2**32
+    rows = [(0, 0, 1), (0, D - 1, 1), (row // D, row % D - 1, 2), (103, 0, 1), (127, 0, 1), (127, D - 1, 1)]
+    shards = [rnd.Shard((1, n, F), (e, r, 0)) for e, r, n in rows]
+    with deferred_draws():  # the leaf not drawn: its rows drawn alone (``Draw.fill``)
+        draw = dense_init(k, MAV_LEAF, torch.float32)
+
+    def alone(s, dev):
+        return draw.fill(torch.empty(s.local_shape, dtype=torch.float32, device=dev), s)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    leaf = dense_init(k.cuda(), MAV_LEAF, torch.float32)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    grew = torch.cuda.max_memory_allocated() - before
+    out_bytes = leaf.numel() * leaf.element_size()
+    card_eq = bits_eq = True
+    cpu_gap, n = [0, 0], 0
+    for s in shards:
+        got = leaf[s.slices()].cpu()
+        mine, cpu = alone(s, "cuda").cpu(), alone(s, "cpu")
+        card_eq &= torch.equal(got.view(torch.int32), mine.view(torch.int32))
+        bits_eq &= torch.equal(rnd.bits(k.cuda(), MAV_LEAF, shard=s).cpu(), rnd.bits(k, MAV_LEAF, shard=s))
+        diff, ulp = bit_gap(torch, got, cpu)
+        cpu_gap = [cpu_gap[0] + diff, max(cpu_gap[1], ulp)]
+        n += got.numel()
+    finite = bool(torch.isfinite(leaf).all())
+    del leaf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "grew_gb": grew / 1e9, "out_gb": out_bytes / 1e9, "extra_gb": (grew - out_bytes) / 1e9,
+            "rows": rows, "n_sampled": n, "card_alone_equal": card_eq, "cpu_bits_equal": bits_eq,
+            "cpu_differ": cpu_gap[0], "cpu_max_ulp": cpu_gap[1], "finite": finite}
+
+
+def mav_sample_shards(cfg, shards, which: str):
+    """Each leaf's first or last row (along the last dim) of the card's
+    block, its layer axes whole: a tree of ``rnd.Shard`` over the leaves and
+    the matching slices of the card's local tensors."""
+    from repro_torch import random as rnd
+    from repro_torch.models import transformer
+    from repro_torch.utils.tree import tree_map_with_path
+
+    stacks = transformer.block_stacks(cfg)
+
+    def one(path, s):
+        n = next((len(d) for name, d in stacks.items() if path.startswith(f"['backbone']['{name}']")), 0)
+        nd = len(s.local_shape)
+        pick = [0 if which == "first" else s.local_shape[d] - 1 for d in range(n, nd - 1)]
+        sub = rnd.Shard(tuple(s.local_shape[:n]) + (1,) * (nd - n - 1) + (s.local_shape[-1],),
+                        tuple(s.offsets[:n]) + tuple(o + p for o, p in zip(s.offsets[n:nd - 1], pick))
+                        + (s.offsets[-1],))
+        local = (slice(None),) * n + tuple(slice(p, p + 1) for p in pick) + (slice(None),)
+        return sub, local
+
+    pairs = tree_map_with_path(one, shards)
+    return tree_map_with_path(lambda p, t: t[0], pairs), tree_map_with_path(lambda p, t: t[1], pairs)
+
+
+def mav_check_rows(torch, model, shards, params) -> dict:
+    """Every leaf's first and last block rows on the card against the same
+    rows drawn alone (``Model.init_local`` of those rows): on the card
+    (bit-equal) and on the CPU (within ``ERFINV_ULP``)."""
+    from repro_torch import random as rnd
+    from repro_torch.utils.tree import leaves
+
+    card_eq, diff, ulp, n = True, 0, 0, 0
+    for which in ("first", "last"):
+        subs, local = mav_sample_shards(model.cfg, shards, which)
+        alone = model.init_local(rnd.key(0), subs, device="cuda")
+        cpu = model.init_local(rnd.key(0), subs, device="cpu")
+        for a, sl, c, b in zip(leaves(params), leaves(local), leaves(alone), leaves(cpu)):
+            got = a[sl].cpu()
+            card_eq &= bit_gap(torch, got, c.cpu())[0] == 0
+            d, u = bit_gap(torch, got, b)
+            diff, ulp, n = diff + d, max(ulp, u), n + b.numel()
+    return {"n_sampled": n, "card_alone_equal": card_eq, "cpu_differ": diff, "cpu_max_ulp": ulp}
+
+
+def mav_step(torch, card, ops, ref, cs, sa, layers: int) -> dict:
+    """18b and 18c: ranks (0, 15) and (0, 0) of the 16 x 16 mesh under
+    ``fsdp`` initialised shard-locally on the card and held against the
+    CPU; then ``train_4k``'s central step (``central_train``, the card's
+    (16, 4096) batch) as rank 0 of a 256-rank fake world on rank 0's real
+    local shards at full width, against the SPMD plan and the fake-tensor
+    probe of the same step."""
+    import collections
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import random as rnd
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun, local, steps
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.specs import TRAIN_CLIENTS, flat_batch_specs
+    from repro_torch.models import build_model
+    from repro_torch.utils import hlo, spmd
+    from repro_torch.utils.tree import leaves, tree_map
+
+    cfg = mav_cfg(layers)
+    model = build_model(cfg)
+    sc = steps.StepConfig()
+    spec = flat_batch_specs(cfg, SHAPES["train_4k"])
+    shapes = model.init_shapes()
+    lmesh.init_fake_world(MAV_MESH[0] * MAV_MESH[1])
+    seg_log = []
+    ranks = {}
+    try:
+        mesh = lmesh.make_production_mesh(device_type="cuda")
+        t0 = time.perf_counter()
+        plan = dryrun.plan_step(cfg, "train", spec, mesh, "fsdp", sc)
+        fake = dryrun.probe_step(cfg, "train", spec, sc, central=True, n_clients=TRAIN_CLIENTS, mesh=mesh,
+                                 policy="fsdp")
+        plan_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        for coords in MAV_RANKS:  # 18b
+            params = mine = None  # the last rank's blocks go before the next rank's are drawn
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = local.init_params(model, rnd.key(0), mesh, "fsdp", coords=coords, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            mine = tree_map(lambda a: a.to_local(), params)
+            nbytes = sum(a.numel() * a.element_size() for a in leaves(mine))
+            shards = local.param_shards(shapes, mesh, "fsdp", coords)
+            ranks[coords] = dict(seconds=secs, gb=nbytes / 1e9, **mav_check_rows(torch, model, shards, mine))
+            r = ranks[coords]
+            print(f"[maverick] 18b rank {coords} of {MAV_MESH} (fsdp), {layers} layers: its shards drawn "
+                  f"alone on the card in {secs:.2f} s, {nbytes / 1e9:.3f} GB; {r['n_sampled']} sampled values "
+                  f"(each leaf's first and last block row) drawn alone again on the card bit-equal "
+                  f"{r['card_alone_equal']}; against the CPU {r['cpu_differ']} differ, max "
+                  f"{r['cpu_max_ulp']} ulp (allowed {ERFINV_ULP})", flush=True)
+        del mine  # rank (0, 0)'s blocks stay, as ``params``
+        opt, clust = local.train_state(params, mesh, sc.cluster_k, sc.d_sketch, device="cuda")
+        bpl = shd.batch_shardings(spec, mesh)["tokens"]
+        bshape = spmd.block(spec["tokens"].shape, bpl, MAV_MESH, MAV_RANKS[-1]).local_shape
+        g = torch.Generator().manual_seed(0)
+        toks = torch.randint(0, cfg.vocab, bshape, generator=g, dtype=torch.int32).cuda()
+        batch = {"tokens": spmd.from_local(toks, mesh, bpl)}
+        state_gb = sum(a.to_local().numel() * a.to_local().element_size()
+                       for a in leaves({"p": params, "o": opt, "c": clust, "b": batch})) / 1e9
+        step = steps.make_central_train_step(model, sc, n_clients=TRAIN_CLIENTS)
+        undo = checked_segments(torch, ops, ref, seg_log)
+        sa.launches = cs.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with implicit_replication():
+                real = hlo.count_step(lambda: step(params, opt, clust, batch),
+                                      leaves({"p": params, "o": opt, "c": clust, "b": batch}))
+                torch.cuda.synchronize()
+                step1_s = time.perf_counter() - t0
+                measured = (torch.cuda.max_memory_allocated() - base) / 1e9
+                # the second step timed alone, under the profiler for the busy share
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    _, _, _, met = step(params, opt, clust, batch)
+                    torch.cuda.synchronize()
+                    step_s = time.perf_counter() - t0
+        finally:
+            undo()
+        launches = {"cosine_similarity": cs.launches, "segment_aggregate": sa.launches}
+        evs = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in evs if e.device_type == DeviceType.CUDA) / 1e6
+        table = evs.table(sort_by="self_device_time_total", row_limit=12)
+        loss = float(met["loss"].to_local() if spmd.is_dtensor(met["loss"]) else met["loss"])
+        del params, opt, clust, batch, step, met, prof, evs
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan_gb = plan["plan_bytes"] / 1e9
+    ratio = plan_gb / measured
+    records = real.collectives
+    real_c, probe_c = collections.Counter(records), collections.Counter(fake.collectives)
+    roof = plan["roofline"]
+    print(f"[maverick] 18c {MAVERICK} train_4k central_train at full width, {layers} of {MAV_FULL} layers, fsdp, "
+          f"rank 0 of a {MAV_MESH} fake world on its real local shards (the fake group moves no data: the "
+          f"loss {loss} is not the model's): plan {plan_gb:.3f} GB (state {plan['state_bytes'] / 1e9:.3f} + "
+          f"inputs {plan['input_bytes'] / 1e9:.6f} + step peak {plan['step_peak_bytes'] / 1e9:.3f}; planned in "
+          f"{plan_s:.1f} s with the fake probe) vs measured {measured:.3f} GB ({card}): plan / measured "
+          f"{ratio:.4f}; state on the card {state_gb:.3f} GB; the probe's counter on the real tensors "
+          f"{real.peak_bytes / 1e9:.3f} GB", flush=True)
+    print(f"[maverick] 18c step {step_s:.3f} s (the counted first step {step1_s:.3f} s); the plan's roofline "
+          f"compute_s {roof['compute_s']:.4f}, memory_s {roof['memory_s']:.4f}, collective_s "
+          f"{roof['collective_s']:.4f}; device busy {busy:.4f} s under the profiler = "
+          f"{100 * busy / step_s:.2f}% of the step; its kernels by device time:\n{table}", flush=True)
+    print(f"[maverick] 18c collectives: real run {sum(real_c.values())}, fake-tensor probe "
+          f"{sum(probe_c.values())}, equal {real_c == probe_c}; per-card GB by op "
+          f"{({k: round(v / 1e9, 4) for k, v in hlo.collective_bytes(records).items()})}", flush=True)
+    print(f"[maverick] 18c kernel launches {launches} on local shards (two steps); {len(seg_log)} segment "
+          f"calls, each bit-equal to the plain version on a CPU copy: {sorted(set(seg_log), key=repr)}", flush=True)
+    if ratio < PLAN_GATE:
+        raise AssertionError(f"18c: the plan {plan_gb:.3f} GB is more than 10% below the measured peak "
+                             f"{measured:.3f} GB")
+    if real_c != probe_c:
+        raise AssertionError(f"18c: the real run's collectives differ from the probe's: "
+                             f"{sorted((real_c - probe_c).items(), key=repr)[:5]} / "
+                             f"{sorted((probe_c - real_c).items(), key=repr)[:5]}")
+    if launches["segment_aggregate"] <= 0 or launches["segment_aggregate"] != len(seg_log):
+        raise AssertionError(f"18c: {launches['segment_aggregate']} segment launches, {len(seg_log)} checked calls")
+    if launches["cosine_similarity"]:
+        raise AssertionError(f"18c: {launches['cosine_similarity']} cosine launches, none checked")
+    return {"layers": layers, "plan_gb": plan_gb, "measured_gb": measured, "ratio": ratio,
+            "state_gb": state_gb, "collectives": sum(real_c.values()), "launches": launches,
+            "step_s": step_s, "step1_s": step1_s, "busy_s": busy, "busy_share": busy / step_s,
+            "roofline": {k: roof[k] for k in ("compute_s", "memory_s", "collective_s")},
+            "plan_s": plan_s, "ranks": {str(k): v for k, v in ranks.items()}}
+
+
+def maverick_phase(torch, card, ops, ref, cs, sa, layers: int = MAV_LAYERS) -> dict:
+    """Phase 18: 18a the expert leaf drawn whole, 18b two ranks' shards
+    drawn alone, 18c the central step on rank 0's shards."""
+    t0 = time.perf_counter()
+    leaf = mav_leaf(torch)
+    print(f"[maverick] 18a {MAVERICK} moe/wg {MAV_LEAF} float32 drawn whole on the card by dense_init in "
+          f"{leaf['seconds']:.2f} s ({card}): max_memory_allocated grew {leaf['grew_gb']:.3f} GB = the output "
+          f"{leaf['out_gb']:.3f} + {leaf['extra_gb']:.3f} GB; {leaf['n_sampled']} sampled values (rows "
+          f"(expert, row, n) {leaf['rows']}, the counters 2**32 - 8192 .. 2**32 + 8191 among them): drawn "
+          f"alone on the card bit-equal {leaf['card_alone_equal']}; against the CPU: threefry bits equal "
+          f"{leaf['cpu_bits_equal']}, values {leaf['cpu_differ']} differ, max {leaf['cpu_max_ulp']} ulp "
+          f"(allowed {ERFINV_ULP}: the devices' erfinv)", flush=True)
+    if not (leaf["finite"] and leaf["card_alone_equal"] and leaf["cpu_bits_equal"]) or leaf["cpu_max_ulp"] > ERFINV_ULP:
+        raise AssertionError(f"18a: {leaf}")
+    if leaf["grew_gb"] * 1e9 > leaf["out_gb"] * 1e9 + MAV_LEAF_SLACK:
+        raise AssertionError(f"18a: the draw took {leaf['extra_gb']:.3f} GB besides its output")
+    out = mav_step(torch, card, ops, ref, cs, sa, layers)
+    for coords, r in out["ranks"].items():
+        if not r["card_alone_equal"] or r["cpu_max_ulp"] > ERFINV_ULP:
+            raise AssertionError(f"18b: rank {coords}'s samples: {r}")
+    secs = time.perf_counter() - t0
+    print(f"[maverick] phase 18 took {secs:.1f} s", flush=True)
+    return {"leaf": leaf, "step": out, "seconds": secs, "launches": out["launches"]}
+
+
+def maverick_only(torch) -> int:
+    """``--maverick``: build, then phase 18 with the step at the whole depth."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import segment_aggregate as sa
+
+    card = smi()
+    print(card)
+    print(f"[build] {build.build()}")
+    out = maverick_phase(torch, card, ops, ref, cs, sa, MAV_FULL)
+    print(json.dumps({"maverick": out}, default=str))
+    print(card)
+    return 0
+
+
 
 
 def spmd_only(torch) -> int:
@@ -3666,6 +3993,8 @@ def main(argv) -> int:
         return launch_only(torch)
     if "--spmd" in argv:
         return spmd_only(torch)
+    if "--maverick" in argv:
+        return maverick_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -3902,6 +4231,12 @@ def main(argv) -> int:
     for r in report:
         if r["name"] in ROUND_KERNELS:
             r["spmd_launches"] = sp["launches"][r["name"]]
+
+    # ------------------------------------ phase 18: llama4-maverick, full width
+    mav = maverick_phase(torch, card, ops, ref, cs, sa)
+    for r in report:
+        if r["name"] in ROUND_KERNELS:
+            r["maverick_launches"] = mav["launches"][r["name"]]
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

@@ -88,19 +88,6 @@ def row_blocks(index: torch.Tensor, n: int, d_sketch: int, seed: int) -> Iterabl
         yield lo, rnd.rademacher_rows(key, block, index[lo:lo + ROW_CHUNK], d_sketch)
 
 
-def shard_index(shape: Sequence[int], local_shape: Sequence[int], offsets: Sequence[int], device) -> torch.Tensor:
-    """The global flat (row-major) indices of a shard of a ``shape`` leaf:
-    ``local_shape`` elements from ``offsets`` on, flattened in the shard's
-    own row-major order (which keeps them ascending)."""
-    idx = torch.zeros((), dtype=torch.int64, device=device)
-    stride = 1
-    for d in range(len(shape) - 1, -1, -1):
-        ax = (offsets[d] + torch.arange(local_shape[d], dtype=torch.int64, device=device)) * stride
-        idx = idx + ax.reshape((-1,) + (1,) * (len(shape) - 1 - d))
-        stride *= shape[d]
-    return idx.reshape(-1)
-
-
 def shard_projection(flat: torch.Tensor, index: torch.Tensor, n: int, d_sketch: int, seed: int) -> torch.Tensor:
     """One card's part of ``leaf_projection``: rows (R, n_local) of a leaf
     shard whose elements sit at global flat ``index`` -> (R, d_sketch), its
@@ -221,9 +208,10 @@ class GradientSketcher:
                 flat = x.reshape(x.shape[0], -1)
                 return leaf_projection(flat, self._matrices(n, i, flat.device))
         else:
-            offsets = [spmd.shard_offset(leaf, d + 1) for d in range(len(shape))]
+            blk = spmd.local_block(leaf)
+            mine = rnd.Shard(blk.local_shape[1:], blk.offsets[1:])
 
             def fn(x):
-                index = shard_index(shape, tuple(x.shape[1:]), offsets, x.device)
+                index = rnd.block_index(shape, mine, x.device)
                 return shard_projection(x.reshape(x.shape[0], -1), index, n, self.d_sketch, seed)
         return spmd.local(fn, (leaf,), out_pl, mesh), bool(split)

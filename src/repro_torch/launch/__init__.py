@@ -4,6 +4,7 @@
 mesh and the production (data, model) mesh on a process group), the
 sharding rules (``sharding``: parameter, batch and cache specs as DTensor
 placements, per-card bytes, and the bank's placement and remesh slot
-algebra) and the dry run's per-card memory and FLOP plan (``dryrun``, with
-``utils.hlo``). Multi-card execution and the collective-traffic profiler
-(the reference's ``profile.py``) are not ported yet."""
+algebra), one card's blocks of a step's state made on that card alone
+(``local``: the per-card init), the dry run's per-card memory, FLOP and
+collective plan (``dryrun``, with ``utils.hlo`` and ``utils.spmd``) and the
+collective profile (``profile``)."""

@@ -124,8 +124,52 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: str = 
     if dist.get_world_size() != n:
         raise ValueError(f"a {shape} mesh needs {n} ranks, the process group has "
                          f"{dist.get_world_size()}")
+    forget_shardings()
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
 
+
+def forget_shardings() -> None:
+    """Drop DTensor's cached sharding decisions and redistribution plans.
+    They are keyed by mesh value (ranks, shape, dim names), not by process
+    group, so a mesh equal to one of a destroyed world would reuse that
+    mesh's decisions: ops on the new mesh would run on the old one's groups
+    (on torch 2.11, whose group names are not reused, "Could not resolve
+    the process group"). The decisions are cached per thread: this
+    thread's are dropped here, and each card's autograd thread, where the
+    backward of CUDA tensors runs, drops its own in the backward of a
+    one-value graph on that card."""
+    from torch.distributed.tensor import _redistribute
+
+    _redistribute._gen_transform_infos.cache_clear()
+    _forget_on_this_thread()
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            x = torch.zeros((), device=torch.device("cuda", i), requires_grad=True)
+            _ForgetInBackward.apply(x).backward()
+
+
+def _forget_on_this_thread() -> None:
+    from torch.distributed.tensor import DTensor
+
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+    # the C++ dispatch's own cache of the same decisions
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+    if native is not None:
+        native()
+
+
+class _ForgetInBackward(torch.autograd.Function):
+    """The identity, whose backward drops the sharding decisions cached on
+    the thread it runs on (for a CUDA tensor, its card's autograd thread)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        _forget_on_this_thread()
+        return grad
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     shape = (2, 16, 16) if multi_pod else (16, 16)

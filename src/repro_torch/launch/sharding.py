@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch.mesh import axis_sizes, data_axes, data_size, model_size
+from repro_torch.utils import spmd
 from repro_torch.utils.tree import leaves_with_path, tree_map, tree_map_with_path
 
 Spec = Tuple[Any, ...]
@@ -272,13 +273,8 @@ def replicated(mesh) -> list:
 def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
     """One card's shard of a ``shape`` tensor under ``spec`` (specs shard
     divisible dims only, so every card holds the same shape)."""
-    sizes = axis_sizes(mesh)
-    out = list(shape)
-    for d, e in enumerate(spec):
-        for a in (e if isinstance(e, tuple) else (e,)):
-            if a is not None:
-                out[d] //= sizes[a]
-    return tuple(out)
+    sizes = tuple(axis_sizes(mesh).values())
+    return spmd.block(shape, placements(spec, mesh), sizes, (0,) * len(sizes)).local_shape
 
 
 def per_card_bytes(tree: Any, mesh, policy: str) -> int:

@@ -21,6 +21,7 @@ single-token decode against a (ring) KV cache. The MoE layer is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional, Tuple
@@ -118,15 +119,61 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Initializers (draws on the key's device)
 # ---------------------------------------------------------------------------
-def dense_init(key, shape, dtype=torch.float32, scale: Optional[float] = None) -> torch.Tensor:
-    """Truncated-normal fan-in init (matches common LLM init schemes)."""
+_DEFER = [False]  # under ``deferred_draws``: the initializers return ``Draw``s
+
+
+@contextlib.contextmanager
+def deferred_draws():
+    """Within it ``dense_init`` and ``embed_init`` draw nothing: they return
+    a ``Draw``, which ``transformer.model_init`` fills into a leaf or a
+    card's block of one (``Model.init_local``)."""
+    prev, _DEFER[0] = _DEFER[0], True
+    try:
+        yield
+    finally:
+        _DEFER[0] = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """A random leaf not yet drawn: ``rnd.<kind>`` of ``shape`` per key of
+    ``key`` (..., 2), times ``scale``, as ``dtype``: a (*key.shape[:-1],
+    *shape) leaf."""
+
+    key: torch.Tensor
+    shape: Tuple[int, ...]
+    dtype: Any
+    kind: str  # "truncated_normal" | "normal"
+    scale: float
+
+    def fill(self, out: torch.Tensor, shard: Optional[rnd.Shard] = None) -> torch.Tensor:
+        """Draw the leaf, or its block ``shard`` (over the leaf's dims), into
+        ``out``: the block's own elements only, a chunk at a time."""
+        key, nk = self.key.to(out.device), self.key.dim() - 1
+        if shard is not None and nk:  # leading dims pick keys
+            key = key[shard.slices()[:nk]]
+            shard = rnd.Shard(tuple(shard.local_shape[nk:]), tuple(shard.offsets[nk:]))
+        kw = dict(scale=self.scale, dtype=self.dtype, shard=shard, out=out)
+        if self.kind == "normal":
+            return rnd.normal(key, self.shape, **kw)
+        return rnd.truncated_normal(key, -2.0, 2.0, self.shape, **kw)
+
+
+def dense_init(key, shape, dtype=torch.float32, scale: Optional[float] = None):
+    """Truncated-normal fan-in init (matches common LLM init schemes),
+    drawn a chunk at a time (``rnd.CHUNK``)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (rnd.truncated_normal(key, -2.0, 2.0, shape) * std).to(dtype)
+    if _DEFER[0]:
+        return Draw(key, tuple(shape), dtype, "truncated_normal", std)
+    return rnd.truncated_normal(key, -2.0, 2.0, shape, scale=std, dtype=dtype)
 
 
-def embed_init(key, shape, dtype) -> torch.Tensor:
-    return (rnd.normal(key, shape) * 0.02).to(dtype)
+def embed_init(key, shape, dtype):
+    """Normal init at 0.02 (a batch of keys draws a leaf per key)."""
+    if _DEFER[0]:
+        return Draw(key, tuple(shape), dtype, "normal", 0.02)
+    return rnd.normal(key, shape, scale=0.02, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ package. Each layer's weights are drawn from its own key of
 those keys, which draws the same numbers) one layer at a time, so no draw
 is ever larger than one layer's biggest leaf. ``model_init`` can write
 straight into preallocated storage (``out=``: one slot of a cohort bank),
-so a bank is filled in place and never built twice.
+so a bank is filled in place and never built twice; its leaves are then
+drawn a chunk at a time into that storage. With ``shards`` as well (a
+tree of ``rnd.Shard``, ``Model.init_local``), ``out`` holds one card's
+blocks and each leaf draws only that card's elements, from the same keys.
 
 The training forward loops over the layers, each under activation
 checkpointing (the JAX package's ``lax.scan`` of ``jax.checkpoint`` with
@@ -34,6 +37,7 @@ recurrent states (and one KV cache per application of the shared block).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -43,6 +47,7 @@ import torch.nn.functional as F
 from repro_torch import random as rnd
 from repro_torch.models import moe, ssm
 from repro_torch.models.common import (
+    Draw,
     ModelConfig,
     _checkpointed,
     _dot,
@@ -51,6 +56,7 @@ from repro_torch.models.common import (
     block_decode,
     block_init,
     default_positions,
+    deferred_draws,
     embed_init,
     rmsnorm,
     rmsnorm_init,
@@ -114,26 +120,32 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _write(dst, src):
-    """Copy every leaf of ``src`` into ``dst`` (in place)."""
+def _write(dst, src, shards=None):
+    """Copy every leaf of ``src`` into ``dst`` (in place): a ``Draw`` is
+    drawn into it, and with ``shards`` (a tree of ``rnd.Shard`` over each
+    leaf's dims) only the card's block of each leaf is written."""
     for k, v in src.items():
+        sh = None if shards is None else shards[k]
         if isinstance(v, dict):
-            _write(dst[k], v)
+            _write(dst[k], v, sh)
+        elif isinstance(v, Draw):
+            v.fill(dst[k], sh)
         else:
-            dst[k].copy_(v)
+            dst[k].copy_(v if sh is None else v[sh.slices()])
 
 
-def _stacked_init(key, n: int, init_fn: Callable, out: Optional[Params] = None) -> Params:
+def _stacked_init(key, n: int, init_fn: Callable, out: Optional[Params] = None, shards=None) -> Params:
     """``vmap(init_fn)(split(key, n))`` one layer at a time: layer i's
     leaves are drawn from the i-th key and written into ``out[...][i]``
-    (allocated from layer 0's shapes when not given)."""
+    (allocated from layer 0's shapes when not given; ``shards`` as in
+    ``_write``, over a layer's dims)."""
     keys = rnd.split(key, n)
     # on the meta device (shapes only) one layer gives every layer's shapes
     for i in range(1 if key.is_meta else n):
         layer = init_fn(keys[i])
         if out is None:
             out = tree_map(lambda a: torch.empty((n,) + tuple(a.shape), dtype=a.dtype, device=a.device), layer)
-        _write(tree_map(lambda a: a[i], out), layer)
+        _write(tree_map(lambda a: a[i], out), layer, shards)
     return out
 
 
@@ -181,44 +193,67 @@ def _layer_init(cfg: ModelConfig, stack: str) -> Callable:
 _STACK_KEY = {"moe_blocks": 1, "mamba_tail": 1, "slstm": 1, "shared_attn": 2}
 
 
-def backbone_init(key, cfg: ModelConfig, out: Optional[Params] = None) -> Params:
+def _body(shards, n_stack: int):
+    """Per-layer shards of a stack's leaves (their ``n_stack`` layer axes
+    whole: the specs never split a layer axis)."""
+    def one(s):
+        if s.offsets[:n_stack] != (0,) * n_stack:
+            raise ValueError(f"a layer axis of {s} is split")
+        return rnd.Shard(tuple(s.local_shape[n_stack:]), tuple(s.offsets[n_stack:]))
+    return None if shards is None else tree_map(one, shards)
+
+
+def backbone_init(key, cfg: ModelConfig, out: Optional[Params] = None, shards=None) -> Params:
     """A nested stack's layers are drawn flat, from ``split(key, n)`` over
-    all its n layers, and viewed nested, as the JAX package reshapes them."""
+    all its n layers, and viewed nested, as the JAX package reshapes them.
+    ``out`` and ``shards`` as in ``model_init``."""
     keys = rnd.split(key, 8)
     out = out or {}
     p: Params = {}
     for name, dims in block_stacks(cfg).items():
         k = keys[_STACK_KEY.get(name, 0)]
         init = lambda k, f=_layer_init(cfg, name): f(k, cfg)
+        sh = None if shards is None else shards[name]
         if not dims:  # zamba2's shared block: one copy
             p[name] = init(k)
             if name in out:
-                _write(out[name], p[name])
+                _write(out[name], p[name], sh)
                 p[name] = out[name]
             continue
         n = math.prod(dims)
         flat = (tree_map(lambda a: a.view((n,) + tuple(a.shape[len(dims):])), out[name])
                 if name in out else None)
-        flat = _stacked_init(k, n, init, flat)
+        flat = _stacked_init(k, n, init, flat, _body(sh, len(dims)))
         p[name] = out[name] if name in out else tree_map(
             lambda a: a.view(tuple(dims) + tuple(a.shape[1:])), flat)
     return p
 
 
-def model_init(key, cfg: ModelConfig, out: Optional[Params] = None) -> Params:
+def model_init(key, cfg: ModelConfig, out: Optional[Params] = None, shards=None) -> Params:
     """Params drawn on ``key``'s device. With ``out`` (a params tree of the
-    right shapes, e.g. one slot of a bank), every leaf is written into it in
-    place and ``out`` is returned."""
+    right shapes, e.g. one slot of a bank), every leaf is drawn into it in
+    place, a chunk at a time, and ``out`` is returned. With ``shards`` too
+    (a params-shaped tree of ``rnd.Shard``), ``out`` holds those blocks of
+    the leaves, and each is drawn alone: one card's shards of the init, bit
+    for bit, without any whole leaf."""
+    if shards is not None and out is None:
+        raise ValueError("a sharded init draws into given storage: pass out")
+    with deferred_draws() if out is not None else contextlib.nullcontext():
+        return _model_init(key, cfg, out, shards)
+
+
+def _model_init(key, cfg: ModelConfig, out, shards) -> Params:
     k_e, k_b, k_h = rnd.split(key, 3)
     dev = key.device
     p: Params = {
-        "backbone": backbone_init(k_b, cfg, None if out is None else out["backbone"]),
+        "backbone": backbone_init(k_b, cfg, None if out is None else out["backbone"],
+                                  None if shards is None else shards["backbone"]),
         "final_norm": rmsnorm_init(cfg.d_model, cfg.dtype, dev),
     }
     if cfg.n_codebooks:
         p["embed"] = embed_init(k_e, (cfg.n_codebooks, cfg.vocab, cfg.d_model), cfg.dtype)
-        p["heads"] = torch.stack([embed_init(k, (cfg.d_model, cfg.vocab), cfg.dtype)
-                                  for k in rnd.split(k_h, cfg.n_codebooks)])
+        # one key per codebook's head: a (nc, D, V) leaf
+        p["heads"] = embed_init(rnd.split(k_h, cfg.n_codebooks), (cfg.d_model, cfg.vocab), cfg.dtype)
     else:
         p["embed"] = embed_init(k_e, (cfg.padded_vocab, cfg.d_model), cfg.dtype)
         if not cfg.tie_embeddings:
@@ -228,7 +263,7 @@ def model_init(key, cfg: ModelConfig, out: Optional[Params] = None) -> Params:
         p["vis_proj"] = embed_init(rnd.fold_in(k_h, 1), (cfg.d_model, cfg.d_model), cfg.dtype)
     if out is None:
         return p
-    _write(out, {k: v for k, v in p.items() if k != "backbone"})
+    _write(out, {k: v for k, v in p.items() if k != "backbone"}, shards)
     return out
 
 

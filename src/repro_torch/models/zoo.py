@@ -25,6 +25,18 @@ class Model:
         place."""
         return transformer.model_init(key.to(resolve_device(device)), self.cfg, out)
 
+    def init_local(self, key, shards, device=None) -> Dict[str, Any]:
+        """One card's blocks of ``init(key)``: ``shards`` is a params-shaped
+        tree of ``rnd.Shard`` (``launch.local.param_shards``), and each leaf
+        draws only its block's elements, from the keys ``init`` draws the
+        whole leaf from, on ``device`` (the card unless the caller passes
+        ``device="cpu"``). Bit-equal to slicing ``init(key)``; no whole leaf
+        is ever made."""
+        dev = resolve_device(device)
+        out = tree_map(lambda a, s: torch.empty(tuple(s.local_shape), dtype=a.dtype, device=dev),
+                       self.init_shapes(), shards)
+        return transformer.model_init(key.to(dev), self.cfg, out, shards)
+
     def init_shapes(self) -> Dict[str, Any]:
         """The params tree on the ``meta`` device: shapes and dtypes, no
         storage and no arithmetic."""

@@ -9,17 +9,43 @@ tensor of shape ``(..., 2)`` whose entries are uint32 words. Every function
 accepts a batch of keys (leading dims) and then draws one sample block per
 key. The uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF`` masks because
 torch's uint32 support is partial.
+
+Bounded draws: every draw is made ``CHUNK`` values at a time, so its
+temporaries are bounded by the chunk and not by the leaf (a (128, 5120,
+8192) expert leaf needs 21.5 GB of output and ~0.34 GB besides); a draw of
+one piece is returned as made, a larger one is written piece by piece into
+a preallocated output (or the caller's ``out``). Every element's bits come
+from its own counter, the global flat index ``i`` as the words
+``(i >> 32, i & 0xFFFFFFFF)``, so a chunk, or a card's block of a leaf
+(``shard=Shard(local_shape, offsets)``, drawn in row-major runs along the
+last dim; ``block_index`` lists its counters), is bit-equal to those
+elements of the whole draw.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+# values a draw holds temporaries for at a time, a multiple of 64 (~24
+# bytes each at the peak of a normal draw); a sketch block of 2**16 rows x
+# 256 is one piece
+CHUNK = 1 << 24
+
+
+class Shard(NamedTuple):
+    """A card's block of a leaf: ``local_shape`` elements from ``offsets``
+    on, one entry per dim of the leaf."""
+    local_shape: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+
+    def slices(self) -> Tuple[slice, ...]:
+        return tuple(slice(o, o + n) for o, n in zip(self.offsets, self.local_shape))
 
 
 def _i32(x):
@@ -44,6 +70,12 @@ def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
     run in place on int32 bit patterns, whose additions wrap like uint32
     ones (half the bytes of int64, no masks, no allocation per operation);
     the outputs are int64 words."""
+    x0, y = _threefry_i32(k1, k2, x1, x2)
+    return x0.to(torch.int64) & _M, y.to(torch.int64) & _M
+
+
+def _threefry_i32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``threefry2x32`` with its outputs left as int32 bit patterns."""
     k1, k2, x1, x2 = _i32(k1), _i32(k2), _i32(x1), _i32(x2)
     ks = (k1, k2, k1 ^ k2 ^ _i32(0x1BD11BDA))
     x0, y = x1 + ks[0], x2 + ks[1]
@@ -57,7 +89,7 @@ def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
             _rotl_(y, r, tmp).bitwise_xor_(x0)
         x0.add_(ks[(i + 1) % 3])
         y.add_(ks[(i + 2) % 3]).add_(i + 1)
-    return x0.to(torch.int64) & _M, y.to(torch.int64) & _M
+    return x0, y
 
 
 def key(seed: int, device=None) -> torch.Tensor:
@@ -83,6 +115,9 @@ def _iota(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _hash(k: torch.Tensor, shape: Sequence[int]):
     shape = tuple(int(s) for s in shape)
+    if k.is_meta:  # shapes only (``Model.init_shapes``): no arithmetic
+        out = torch.empty(tuple(k.shape[:-1]) + shape, dtype=torch.int64, device="meta")
+        return out, out
     hi, lo = _iota(shape, k.device)
     lead = k.shape[:-1]
     view = lead + (1,) * len(shape)
@@ -107,20 +142,131 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32 random bits per element (int64 holding uint32): (..., *shape)."""
-    b1, b2 = _hash(k, shape)
-    return b1 ^ b2
+def _pieces(shape: Tuple[int, ...], shard: Optional[Shard], per: int,
+            device) -> Iterator[Tuple[int, int, object, torch.Tensor]]:
+    """(start, stop, hi, lo): the output's flat positions [start, stop), at
+    most ``per`` of them, and their counters' (hi, lo) words: positions of
+    the whole leaf, or of a shard (whole rows of it at a time, or pieces of
+    one row longer than ``per``)."""
+    if shard is None:
+        n = math.prod(shape)
+        for a in range(0, n, per):
+            b = min(a + per, n)
+            if b <= 2**31:  # the high word is 0
+                yield a, b, 0, torch.arange(a, b, dtype=torch.int32, device=device)
+            else:
+                yield (a, b) + _words(torch.arange(a, b, dtype=torch.int64, device=device))
+        return
+    shape, local, off = _dims(shape, shard)
+    L, rows = local[-1], math.prod(local[:-1])
+    cols = torch.arange(off[-1], off[-1] + min(L, per), dtype=torch.int64, device=device)
+    if L <= per:
+        step = per // L
+        for r0 in range(0, rows, step):
+            r1 = min(r0 + step, rows)
+            starts = _row_starts(shape, local, off, torch.arange(r0, r1, dtype=torch.int64, device=device))
+            yield (r0 * L, r1 * L) + _words((starts[:, None] + cols).reshape(-1))
+        return
+    for r in range(rows):
+        start = int(_row_starts(shape, local, off, torch.tensor([r], dtype=torch.int64))[0])
+        for c in range(0, L, per):
+            m = min(per, L - c)
+            yield (r * L + c, r * L + c + m) + _words(cols[:m] + (start + c))
 
 
-def uniform(k, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
+def _dims(shape, shard: Shard):
+    """(leaf shape, block shape, block offsets), a scalar as one element."""
+    return tuple(shape) or (1,), tuple(shard.local_shape) or (1,), tuple(shard.offsets) or (0,)
+
+
+def _row_starts(shape, local, off, r: torch.Tensor) -> torch.Tensor:
+    """Global flat index of the first element of the shard's local rows
+    ``r`` (row-major over ``local[:-1]``)."""
+    start = torch.zeros_like(r)
+    stride = shape[-1]
+    for d in range(len(shape) - 2, -1, -1):
+        start += (r % local[d] + off[d]) * stride
+        r = r // local[d]
+        stride *= shape[d]
+    return start
+
+
+def block_index(shape: Sequence[int], shard: Shard, device=None) -> torch.Tensor:
+    """The global flat (row-major) indices of the block ``shard`` of a
+    ``shape`` leaf, in the block's own row-major order (ascending): the
+    counters a draw of the block uses."""
+    shape, local, off = _dims(tuple(int(s) for s in shape), shard)
+    rows = torch.arange(math.prod(local[:-1]), dtype=torch.int64, device=device)
+    cols = torch.arange(off[-1], off[-1] + local[-1], dtype=torch.int64, device=device)
+    return (_row_starts(shape, local, off, rows)[:, None] + cols).reshape(-1)
+
+
+def _words(idx: torch.Tensor):
+    """int64 counters as their (hi, lo) words (int32 bit patterns)."""
+    return (idx >> 32).to(torch.int32), idx.to(torch.int32)
+
+
+def _draw(k: torch.Tensor, shape, fn: Callable, dtype, shard: Optional[Shard] = None,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fn`` of the 32 random bits of every element of a ``shape`` draw per
+    key of ``k`` (..., 2), as ``dtype``: the whole draw (..., *shape) or the
+    block ``shard`` of it (..., *shard.local_shape). Made piece by piece,
+    each piece's bits made and transformed alone: a draw of one piece is
+    returned as made, else the pieces go into ``out`` (allocated when not
+    given)."""
+    shape = tuple(int(s) for s in shape)
+    lead = tuple(k.shape[:-1])
+    part = shape if shard is None else tuple(int(s) for s in shard.local_shape)
+    m, n = math.prod(lead), math.prod(part)
+    if out is not None and (tuple(out.shape) != lead + part or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} is not a contiguous {lead + part} tensor")
+    if k.is_meta or m * n == 0:  # shapes only, or nothing to draw
+        return torch.empty(lead + part, dtype=dtype, device=k.device) if out is None else out
+    k1, k2 = k[..., 0].reshape(m, 1), k[..., 1].reshape(m, 1)
+    per = max(64, CHUNK // m // 64 * 64)
+    flat = None if out is None else out.view(m, n)
+    for a, b, hi, lo in _pieces(shape, shard, per, k.device):
+        x0, y = _threefry_i32(k1, k2, hi, lo)
+        del hi, lo
+        b32 = x0.bitwise_xor_(y)
+        del x0, y
+        if flat is None:
+            if b - a == n:  # one piece
+                return fn(b32).to(dtype).reshape(lead + part)
+            out = torch.empty(lead + part, dtype=dtype, device=k.device)
+            flat = out.view(m, n)
+        flat[:, a:b].copy_(fn(b32))
+        del b32
+    return out
+
+
+def _u32(b: torch.Tensor) -> torch.Tensor:
+    """32 random bits as int64 words (int32 bit patterns widened)."""
+    return b if b.dtype == torch.int64 else b.to(torch.int64) & _M
+
+
+def bits(k: torch.Tensor, shape: Sequence[int], *, shard: Optional[Shard] = None,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """32 random bits per element (int64 holding uint32): (..., *shape), or
+    its block ``shard`` (``_draw``)."""
+    return _draw(k, shape, _u32, torch.int64, shard, out)
+
+
+def _uniform_of(b: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The mantissa-fill construction of ``jax.random.uniform`` on 32 random
+    bits (int64 words or int32 patterns): the top 23 bits over [1, 2)."""
+    fb = ((b >> 9) & 0x7FFFFF) | 0x3F800000  # < 2**31: fits int32
+    floats = fb.to(torch.int32).view(torch.float32) - 1.0
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def uniform(k, shape, minval=0.0, maxval=1.0, *, shard: Optional[Shard] = None,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """float32 uniforms in [minval, maxval): the mantissa-fill construction
     of ``jax.random.uniform``, so raw draws are bit-equal."""
-    fb = (bits(k, shape) >> 9) | 0x3F800000  # < 2**31: fits int32
-    floats = fb.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.as_tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.as_tensor(maxval, dtype=torch.float32, device=floats.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=k.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=k.device)
+    return _draw(k, shape, lambda b: _uniform_of(b, lo, hi), torch.float32, shard, out)
 
 
 def rademacher(k, shape, dtype=torch.float32) -> torch.Tensor:
@@ -143,24 +289,44 @@ def rademacher_rows(k, block: int, rows: torch.Tensor, d: int, dtype=torch.float
     return (1 - 2 * ((b1 ^ b2) >> 31)).to(dtype)
 
 
-def normal(k, shape) -> torch.Tensor:
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(k, shape, lo, 1.0)
-    return np.float32(np.sqrt(2)).item() * torch.erfinv(u)
+def normal(k, shape, *, scale: Optional[float] = None, dtype=torch.float32, shard: Optional[Shard] = None,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Standard normals (``jax.random.normal``: ``sqrt(2)·erfinv`` of a
+    uniform in (-1, 1)), times ``scale`` when given, as ``dtype``."""
+    lo = torch.as_tensor(float(np.nextafter(np.float32(-1.0), np.float32(0.0))), dtype=torch.float32,
+                         device=k.device)
+    hi = torch.as_tensor(1.0, dtype=torch.float32, device=k.device)
+    sqrt2 = np.float32(np.sqrt(2)).item()
+
+    def fn(b):
+        out = sqrt2 * torch.erfinv(_uniform_of(b, lo, hi))
+        return out if scale is None else out * scale
+
+    return _draw(k, shape, fn, dtype, shard, out)
 
 
-def truncated_normal(k, lower: float, upper: float, shape) -> torch.Tensor:
+def truncated_normal(k, lower: float, upper: float, shape, *, scale: Optional[float] = None,
+                     dtype=torch.float32, shard: Optional[Shard] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Normals truncated to (lower, upper) (``jax.random.truncated_normal``:
+    ``sqrt(2)·erfinv`` of a uniform between the bounds' ``erf``), times
+    ``scale`` when given, as ``dtype``."""
+    if k.is_meta:
+        return _draw(k, shape, None, dtype, shard, out)
     sqrt2 = torch.tensor(np.sqrt(2), dtype=torch.float32)
     lo = torch.tensor(lower, dtype=torch.float32)
     hi = torch.tensor(upper, dtype=torch.float32)
-    a = torch.erf(lo / sqrt2)
-    b = torch.erf(hi / sqrt2)
-    u = uniform(k, shape, a.to(k.device), b.to(k.device))
-    out = sqrt2.to(k.device) * torch.erfinv(u)
+    a = torch.erf(lo / sqrt2).to(k.device)
+    b = torch.erf(hi / sqrt2).to(k.device)
     inf = torch.tensor(float("inf"))
-    return out.clamp(
-        torch.nextafter(lo, inf).item(), torch.nextafter(hi, -inf).item()
-    )
+    cl, ch = torch.nextafter(lo, inf).item(), torch.nextafter(hi, -inf).item()
+    sqrt2 = sqrt2.to(k.device)
+
+    def fn(bits_):
+        out = (sqrt2 * torch.erfinv(_uniform_of(bits_, a, b))).clamp(cl, ch)
+        return out if scale is None else out * scale
+
+    return _draw(k, shape, fn, dtype, shard, out)
 
 
 def gumbel(k, shape) -> torch.Tensor:

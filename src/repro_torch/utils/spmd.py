@@ -36,6 +36,8 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from repro_torch import random as rnd
+
 
 def _dtensor():
     from torch.distributed.tensor import DTensor
@@ -371,14 +373,29 @@ def rows_like(x, n: int):
                       x.device_mesh, pl)
 
 
+def block(shape: Sequence[int], placements: Sequence, sizes: Sequence[int], coords: Sequence[int]):
+    """The block of a ``shape`` tensor placed by ``placements`` on a mesh of
+    dim sizes ``sizes`` that the card at mesh coordinates ``coords`` holds,
+    as an ``rnd.Shard`` (local shape and offsets). Mesh dims that split one
+    dim nest in mesh order, as DTensor nests them; the specs split
+    divisible dims only."""
+    local, off = [int(n) for n in shape], [0] * len(shape)
+    for p, n, c in zip(placements, sizes, coords):
+        if p.is_shard():
+            local[p.dim] //= int(n)
+            off[p.dim] += int(c) * local[p.dim]
+    return rnd.Shard(tuple(local), tuple(off))
+
+
+def local_block(x):
+    """This card's block of DTensor ``x`` (``block``)."""
+    mesh = x.device_mesh
+    return block(tuple(x.shape), x.placements, tuple(mesh.shape), mesh.get_coordinate())
+
+
 def shard_offset(x, dim: int) -> int:
-    """This card's offset along ``dim`` of DTensor ``x`` (mesh dims that
-    shard ``dim`` nest in mesh order)."""
-    mesh, off, n = x.device_mesh, 0, 1
-    for i, p in enumerate(x.placements):
-        if p.is_shard() and p.dim == dim:
-            off, n = off * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
-    return off * (x.shape[dim] // n)
+    """This card's offset along ``dim`` of DTensor ``x``."""
+    return local_block(x).offsets[dim]
 
 
 def vocab_lookup(emb, tokens):

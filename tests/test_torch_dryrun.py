@@ -224,3 +224,25 @@ def test_fake_cuda_tensors_take_the_kernels_shape_rules(monkeypatch):
     for out, shape, dtype in outs:
         assert is_fake(out) and out.device.type == "cuda"
         assert tuple(out.shape) == shape and out.dtype == dtype
+
+
+@pytest.mark.parametrize("grad_t,out_t,copies", [(False, False, 1), (True, False, 2), (False, True, 2),
+                                                 (True, True, 3)])
+def test_softmax_backward_scratch_counts_in_the_peak(grad_t, out_t, copies):
+    """The softmax backward's CUDA kernel holds ``grad * output`` and a
+    contiguous copy of each operand that is not contiguous (measured on the
+    card): the counter's peak holds that scratch above its inputs and
+    result, and nothing stays live after the op."""
+    def arg(t):
+        x = torch.randn(4, 3, 32)
+        return x.transpose(0, 1).contiguous().transpose(0, 1) if t else x
+
+    grad, out = arg(grad_t), arg(out_t)
+    counter = hlo.StepCounter()
+    for t in (grad, out):
+        counter.track(t)
+    base = counter.live
+    with counter:
+        torch.ops.aten._softmax_backward_data(grad, out, -1, torch.float32)
+    n = grad.numel() * 4
+    assert counter.peak == base + n + copies * n  # the result and the scratch

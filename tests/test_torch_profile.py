@@ -27,6 +27,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import random as rnd
 from repro_torch.core import sketch
 from repro_torch.launch import mesh as lmesh
 from repro_torch.launch import profile
@@ -247,6 +248,16 @@ def test_gloo_four_ranks_central_prefill_decode_equal_one_device(tmp_path, arch)
     _assert_trees_close(res["decode"]["spmd"], res["decode"]["one"], "decode")
 
 
+def test_gloo_four_ranks_central_from_per_card_init_equal_one_device(tmp_path):
+    """Reduced llama4-maverick's centralized step under fsdp on the 4-rank
+    gloo group, each rank's params drawn by the per-card init (its own
+    blocks only, ``launch.local.init_params``) and Yogi's and the
+    clustering state made at local shape: equal to one device's step from
+    the whole init, at the tolerances of the steps above."""
+    res = _gloo(tmp_path, "llama4_maverick_400b_a17b", "central_local")["central_local"]
+    _assert_train_equal(res["spmd"], res["one"], "central_local")
+
+
 def test_sketch_of_split_leaves():
     """The cards' ``shard_projection`` parts of a (4, 6, 8) leaf split on
     each dim sum to ``leaf_projection``; on a (1, 1) mesh a DTensor sketch
@@ -262,7 +273,7 @@ def test_sketch_of_split_leaves():
         for k, piece in enumerate(leaf.chunk(2, dim=dim + 1)):
             offsets = [0, 0, 0]
             offsets[dim] = k * shape[dim] // 2
-            index = sketch.shard_index(shape, tuple(piece.shape[1:]), offsets, "cpu")
+            index = rnd.block_index(shape, rnd.Shard(tuple(piece.shape[1:]), tuple(offsets)), "cpu")
             parts.append(sketch.shard_projection(piece.reshape(3, -1), index, n, d, seed))
         torch.testing.assert_close(parts[0] + parts[1], want, rtol=1e-5, atol=1e-6)
 

@@ -130,3 +130,134 @@ def test_child_clusterer_keys_from_hash_seeds():
         seed = 3 + hash(child) % 10_000
         jk, tk = jax.random.key(seed), trnd.key(seed)
         np.testing.assert_array_equal(trnd.split(tk).numpy(), _jkey_words(jax.random.split(jk)))
+
+
+# ---------------------------------------------------------------------------
+# Bounded draws: pieces of CHUNK values, card blocks, explicit counters
+# ---------------------------------------------------------------------------
+def _draws(tk, shape, **kw):
+    """The four bounded draws of ``shape`` on ``tk`` (kw: shard)."""
+    return {
+        "bits": trnd.bits(tk, shape, **kw),
+        "uniform": trnd.uniform(tk, shape, -0.5, 3.0, **kw),
+        "normal": trnd.normal(tk, shape, scale=0.02, dtype=torch.bfloat16, **kw),
+        "truncated_normal": trnd.truncated_normal(tk, -2.0, 2.0, shape, scale=0.125, **kw),
+    }
+
+
+def _bit_equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.dtype.is_floating_point:  # the bit patterns
+        iv = torch.int16 if a.element_size() == 2 else torch.int32
+        a, b = a.view(iv), b.view(iv)
+    assert torch.equal(a, b)
+
+
+def _count_pieces(monkeypatch) -> list:
+    """The sizes of the pieces the draws make, from now on."""
+    sizes, orig = [], trnd._pieces
+
+    def counted(*a, **k):
+        for piece in orig(*a, **k):
+            sizes.append(piece[1] - piece[0])
+            yield piece
+
+    monkeypatch.setattr(trnd, "_pieces", counted)
+    return sizes
+
+
+def test_chunk_is_a_multiple_of_64():
+    """Piece boundaries fall on multiples of 64 values, where the CPU's
+    vectorised loops start: a piece never ends in another tail than the
+    whole draw's (``erfinv`` runs scalar on the CPU; the tests below also
+    cut at boundaries that are not multiples of the rows)."""
+    assert trnd.CHUNK % 64 == 0 and trnd.CHUNK >= 1 << 16
+
+
+@pytest.mark.parametrize("chunk", [64, 192, 4096])
+@pytest.mark.parametrize("shape", [(37, 50), (3, 7, 61), (5000,)])
+def test_chunked_draws_bit_equal_whole(monkeypatch, shape, chunk):
+    """Drawn ``chunk`` values at a time (chunks that do not divide the leaf
+    and end mid-row), each draw is bit-equal to the one-piece draw, and
+    bits and [0, 1) uniforms to JAX's."""
+    tk = trnd.key(42)
+    whole = _draws(tk, shape)
+    monkeypatch.setattr(trnd, "CHUNK", chunk)
+    sizes = _count_pieces(monkeypatch)
+    parts = _draws(tk, shape)
+    n = int(np.prod(shape))
+    assert len(sizes) == 4 * -(-n // chunk)
+    assert all(m <= chunk for m in sizes)
+    for name in whole:
+        _bit_equal(parts[name], whole[name])
+    jk = jax.random.key(42)
+    np.testing.assert_array_equal(parts["bits"].numpy(),
+                                  np.asarray(jax.random.bits(jk, shape, jnp.uint32)).astype(np.int64))
+    np.testing.assert_array_equal(trnd.uniform(tk, shape).numpy(), np.asarray(jax.random.uniform(jk, shape)))
+
+
+def test_chunked_batched_keys_bit_equal(monkeypatch):
+    """A batch of keys (a musicgen head per codebook, DP noise per row)
+    drawn in pieces equals its one-piece draw."""
+    tks = trnd.split(trnd.key(3), 5)
+    whole = _draws(tks, (9, 70))
+    monkeypatch.setattr(trnd, "CHUNK", 640)  # 128 values a key a piece
+    for name, a in _draws(tks, (9, 70)).items():
+        _bit_equal(a, whole[name])
+
+
+def _mesh_blocks(shape, mesh_shape):
+    """Every card's block of a ``shape`` leaf split on dims 0 and 2 of a
+    (data, model) mesh, on dim 1 over both, and on the last dim alone."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.utils.spmd import block
+
+    layouts = ([Shard(0), Shard(2)], [Shard(1), Shard(1)], [Replicate(), Shard(len(shape) - 1)])
+    for pl in layouts:
+        for coords in np.ndindex(*mesh_shape):
+            yield block(shape, pl, mesh_shape, coords)
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 4), (2, 2), (4, 4)])
+def test_shard_draws_equal_whole_draw_elements(monkeypatch, mesh_shape):
+    """Each card's block, drawn alone (whole rows a piece, and pieces of a
+    row when a row is longer than a piece), equals that block of the whole
+    draw, bit for bit."""
+    shape = (8, 16, 32)
+    tk = trnd.key(7)
+    whole = _draws(tk, shape)
+    for chunk in (trnd.CHUNK, 64, 192):
+        monkeypatch.setattr(trnd, "CHUNK", chunk)
+        for s in _mesh_blocks(shape, mesh_shape):
+            for name, a in _draws(tk, shape, shard=s).items():
+                _bit_equal(a, whole[name][s.slices()])
+
+
+def test_counters_past_2_32_equal_jax_threefry():
+    """A (128, 5120, 8192) expert leaf has 5.4G values: counters from 2**32
+    on have the high word 1. Its elements 2**32 - 64 .. 2**32 + 63 (the end
+    of one row, the start of the next) and the last 100 of expert 127,
+    drawn as cards' blocks without the leaf, equal JAX's own
+    ``threefry2x32_p`` on the same (hi, lo) words (partitionable threefry:
+    bits = out1 ^ out2), and so do the uniforms."""
+    from jax._src.prng import threefry2x32_p
+
+    shape = (128, 5120, 8192)
+    row = 2**32 // 8192  # the global row whose first counter is 2**32
+    blocks = [trnd.Shard((1, 1, 64), (row // 5120, row % 5120 - 1, 8128)),
+              trnd.Shard((1, 1, 64), (row // 5120, row % 5120, 0)),
+              trnd.Shard((1, 1, 100), (127, 5119, 8092))]
+    idx = np.concatenate([np.arange(2**32 - 64, 2**32 + 64), np.prod(shape) - 100 + np.arange(100)])
+    hi, lo = (idx >> 32).astype(np.uint32), (idx & 0xFFFFFFFF).astype(np.uint32)
+    assert hi[0] == 0 and hi[64] == 1
+    for seed in (0, 1234 * 7919):
+        words = _jkey_words(jax.random.key(seed)).astype(np.uint32)
+        o1, o2 = threefry2x32_p.bind(jnp.uint32(words[0]), jnp.uint32(words[1]), jnp.asarray(hi), jnp.asarray(lo))
+        want = (np.asarray(o1) ^ np.asarray(o2)).astype(np.int64)
+        tk = trnd.key(seed)
+        got = np.concatenate([trnd.bits(tk, shape, shard=s).reshape(-1).numpy() for s in blocks])
+        np.testing.assert_array_equal(got, want)
+        u = ((want >> 9) | 0x3F800000).astype(np.uint32).view(np.float32) - np.float32(1.0)
+        got = np.concatenate([trnd.uniform(tk, shape, shard=s).reshape(-1).numpy() for s in blocks])
+        np.testing.assert_array_equal(got, u)

@@ -6,6 +6,10 @@ KINDS`` by ``tests/test_torch_profile.py`` (four ranks, a (2, 2) mesh of
 
 - ``train``: the federated train step, params under ``tp``;
 - ``central``: the centralized train step, params under ``fsdp``;
+- ``central_local``: the same step, but each rank draws its own blocks of
+  the params (``launch.local.init_params``: the per-card init) and makes
+  Yogi's state and the clustering state at local shape
+  (``launch.local.train_state``), where ``central`` slices whole ones;
 - ``prefill``: the serving prefill, params under ``tp``;
 - ``decode``: two decode steps from a prefilled cache (random K/V and
   recurrent states, an index past the first slots) placed by
@@ -96,14 +100,18 @@ def _prefilled_cache(model, B, seed=1):
 def case(kind, model, step_cfg, mesh):
     """(SPMD result, one-device result or None on ranks other than 0)."""
     from repro_torch import random as rnd
+    from repro_torch.launch import local
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import steps
     from repro_torch.utils.tree import tree_map
 
     cfg = model.cfg
     params = model.init(rnd.key(0), device="cpu")
-    policy = "fsdp" if kind == "central" else "tp"
-    d_params = tree_map(lambda a, p: _place(a, mesh, p), params, shd.param_shardings(params, mesh, policy))
+    policy = "fsdp" if kind.startswith("central") else "tp"
+    if kind == "central_local":
+        d_params = local.init_params(model, rnd.key(0), mesh, policy, device="cpu")
+    else:
+        d_params = tree_map(lambda a, p: _place(a, mesh, p), params, shd.param_shardings(params, mesh, policy))
     one_params = tree_map(torch.clone, params)
     rank0 = torch.distributed.get_rank() == 0
 
@@ -111,13 +119,16 @@ def case(kind, model, step_cfg, mesh):
         pl = shd.batch_shardings(batch, mesh)
         return {k: _place(a, mesh, pl[k]) for k, a in batch.items()}
 
-    if kind in ("train", "central"):
+    if kind in ("train", "central", "central_local"):
         opt = steps.yogi_init(params)
         clust = steps.clustering_init(step_cfg.cluster_k, step_cfg.d_sketch, device="cpu")
         batch = {"tokens": _tokens((C, M, S) if kind == "train" else (C * M, S), cfg.vocab)}
-        opl = shd.param_shardings(params, mesh, "fsdp")
-        d_opt = {k: tree_map(lambda a, p: _place(a, mesh, p), v, opl) for k, v in opt.items()}
-        d_clust = tree_map(lambda a: _place(a, mesh, shd.replicated(mesh)), clust)
+        if kind == "central_local":
+            d_opt, d_clust = local.train_state(d_params, mesh, step_cfg.cluster_k, step_cfg.d_sketch, device="cpu")
+        else:
+            opl = shd.param_shardings(params, mesh, "fsdp")
+            d_opt = {k: tree_map(lambda a, p: _place(a, mesh, p), v, opl) for k, v in opt.items()}
+            d_clust = tree_map(lambda a: _place(a, mesh, shd.replicated(mesh)), clust)
         one = [tree_map(torch.clone, t) for t in (opt, clust, batch)]
         make = (steps.make_train_step(model, step_cfg) if kind == "train"
                 else steps.make_central_train_step(model, step_cfg, n_clients=C))
