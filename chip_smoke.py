@@ -6,7 +6,8 @@
     python3 chip_smoke.py --decode-timing [--src DIR]  # build + phase 9 alone,
         # of the package under DIR (default ./src): time two versions in turns
     python3 chip_smoke.py --kernel-timing [--src DIR]  # build + phase 6's fixed
-        # rows of the segment and cosine kernels alone, likewise
+        # rows of the segment and cosine kernels and the LM rows (1, 2, n) -> 1
+        # weighted at n = 41.9M and 671M alone, likewise
     python3 chip_smoke.py --lm-train      # build + phase 10 alone
     python3 chip_smoke.py --engine-modes  # build + phase 4's run + phase 11 alone
     python3 chip_smoke.py --eval-baselines  # build + phase 4a and 4's runs + phase 12 alone
@@ -23,7 +24,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
   2. build: compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. kernel vs plain version on the card, over the JAX kernel tests' shape
      sweep, the main-path shapes, stage 2 at 32 and 64 cohorts (K = 63,
-     127) and the kernels_micro shapes, f32 and bf16, with a cohort axis,
+     127), the kernels_micro shapes and 9000 rows (past two chunks of the
+     segment kernel's row lists), f32 and bf16, with a cohort axis,
      int64 and int32 ids (the segment kernel bit-equal to the plain
      version on a CPU copy, the others at their tolerances); two launches
      bit-identical at K = 63 and at (8192, 512, 32);
@@ -127,7 +129,7 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      equal, params printed bit-equal or at rtol 1e-4 / atol 1e-5), a CPU
      checkpoint continued on the card, and the layout gate: one segment's
      25 rows at offsets 0 and 37, in blocks 1 and 3, straddling rows 256,
-     512 and 1024, narrow (D = 1), wide (D = 6922) and a split plan, f32
+     512 and 1024, narrow (D = 1), wide (D = 6922) and D = 512, f32
      and bf16, every call bit-equal to the plain version on a CPU copy;
      then every call shape of the phase held against the plain version.
  16. the launch plan (``repro_torch.launch.dryrun.plan_step`` on the fake
@@ -216,11 +218,12 @@ SWEEP = [(1, 128, 2), (7, 33, 3), (128, 512, 8), (200, 300, 5), (1024, 256, 16),
          (64, 64, 64), (512, 128, 4), (64, 128, 2), (125, 6922, 7), (125, 1, 7),
          (64, 1, 2), (0, 128, 2), (33, 128, 1)]
 # stage 2 at 32 and 64 cohorts (K = 63, 127), benchmarks/kernels_micro.py's
-# shapes, a narrow call past one chunk of rows, two chunks of wide rows,
-# and a K whose (K, columns) tile is too large for shared memory (sorted in
-# two passes)
+# shapes (8192 rows: two chunks of the segment kernel's row lists), a
+# narrow call of 63 segments, wide rows, K = 400 (short segments: 4 pairs
+# a thread), and rows past two chunks (9000, narrow and of 40 columns)
 SWEEP_WIDE_K = [(125, 6922, 63), (125, 6922, 127), (1024, 256, 8), (4096, 256, 16),
-                (8192, 512, 32), (300, 1, 63), (300, 6922, 7), (600, 40, 400)]
+                (8192, 512, 32), (300, 1, 63), (300, 6922, 7), (600, 40, 400), (9000, 40, 5),
+                (9000, 1, 3)]
 TOL = {"f32": 2e-5, "bf16": 2e-2}  # cosine
 # tests/test_decode_attention_kernel.py shapes (B, H, Hkv, hd, S, length)
 DECODE_SHAPES = [(2, 8, 2, 16, 64, 40), (1, 4, 4, 32, 128, 128), (3, 16, 2, 64, 300, 200),
@@ -567,7 +570,9 @@ def time_segment(torch, ops, ref, sig, rotate: bool = False, id_dtype=None,
     """sig: (data shape, K, dtype, weighted); ids in [0, K) of ``id_dtype``
     (int64, as stage 2 passes them, unless given). The library call, where
     one computes the function (C = 1), is ``index_add_`` into an output of
-    the data's dtype (unweighted) or ``w @ d`` (one weighted segment)."""
+    the data's dtype (unweighted), ``w @ d`` (one weighted segment) or
+    ``M @ d`` (K weighted segments; M the (K, P) weighted one-hot of the
+    ids, built outside the timed call)."""
     (ds, K, dt, weighted) = sig
     C, P, D = ds
     lead = ds[:-1]
@@ -587,6 +592,10 @@ def time_segment(torch, ops, ref, sig, rotate: bool = False, id_dtype=None,
         library = lambda d, i, k, w: outs[id(d)].index_add_(0, i[0], d[0])  # noqa: E731
     elif weighted and K == 1 and C == 1:
         library = lambda d, i, k, w: torch.matmul(w[0], d[0])  # noqa: E731
+    elif weighted and C == 1:
+        onehot = {id(d): torch.zeros(K, P, device="cuda").scatter_(0, i[0][None].long(), w[0][None]).to(dt)
+                  for d, i, _, w in ins}
+        library = lambda d, i, k, w: torch.matmul(onehot[id(d)], d[0])  # noqa: E731
     out = time_calls(torch, ops.segment_aggregate, ref.segment_aggregate, library, ins, nbytes, flops,
                      inner=inner, reps=reps)
     del ins
@@ -615,12 +624,25 @@ def fixed_rows(torch):
     return rows
 
 
-def time_fixed_rows(torch, ops, ref):
-    """Phase 6's fixed rows: [(kernel, key, sig, times)]."""
+# the LM path's aggregation at granite-3-2b's smallest and largest leaf
+# shapes of phase 10 (1, 2, n) -> 1 weighted, int32 ids: ``--kernel-timing``
+# times them besides phase 6's rows
+LM_TIMING = [41_943_040, 671_088_640]
+
+
+def time_fixed_rows(torch, ops, ref, lm: bool = False):
+    """Phase 6's fixed rows (and, with ``lm``, the LM_TIMING rows):
+    [(kernel, key, sig, times)]."""
     out = []
-    for name, key, sig, rotate in fixed_rows(torch):
-        timer = time_segment if name == "segment_aggregate" else time_cosine
-        t = timer(torch, ops, ref, sig, rotate)
+    rows = fixed_rows(torch) + ([("segment_aggregate", f"lm_1_2_{n}_k1_w", ((1, 2, n), 1, torch.float32, True),
+                                  False) for n in LM_TIMING] if lm else [])
+    for name, key, sig, rotate in rows:
+        if name == "cosine_similarity":
+            t = time_cosine(torch, ops, ref, sig, rotate)
+        elif key.startswith("lm_"):
+            t = time_segment(torch, ops, ref, sig, id_dtype=torch.int32, inner=3, reps=5)
+        else:
+            t = time_segment(torch, ops, ref, sig, rotate)
         out.append((name, key, sig, t))
         print_row(name, f"{key} {sig}", t)
     return out
@@ -2985,7 +3007,7 @@ def resumed(eng, rounds: int):
 
 # 15c's layout gate: where one segment's 25 rows sit, as (C, P, block, first
 # row): offsets 0 and 37, blocks 1 and 3 of a stacked call, and rows that
-# straddle the chunk boundaries at 256, 512 and 1024
+# straddle rows 256, 512 and 1024 (the 256-row chunk boundaries of an earlier design)
 LAYOUT_PLACES = [(1, 75, 0, 0), (1, 75, 0, 37), (2, 75, 1, 11), (4, 75, 3, 50),
                  (1, 500, 0, 240), (1, 600, 0, 500), (1, 2000, 0, 1020)]
 
@@ -2995,11 +3017,11 @@ def layout_free_sums(torch, ops, ref) -> dict:
     LAYOUT_PLACES, inside calls whose other rows are random (segment 1 or
     dropped). Every call must give the plain version's bits on a CPU copy
     of its inputs (``torch.equal`` on the int32 views), so the segment's sum
-    has the same bits wherever it sits. The narrow path (D = 1, stage ②'s
-    denominators: integer client sizes, q-FedAvg's real loss weights), the
-    wide path at the main path's D = 6922 weighted, and a D = 512 call
-    whose longer placements the wrapper splits over segment groups; f32
-    and bf16 data. Raises on any difference."""
+    has the same bits wherever it sits. D = 1 (stage ②'s denominators:
+    integer client sizes, q-FedAvg's real loss weights), the main path's
+    D = 6922 weighted (rows 8 bytes off at odd rows), and a D = 512 call
+    (4 column spans a segment); f32 and bf16 data. Raises on any
+    difference."""
     g = torch.Generator(device="cuda").manual_seed(5)
     rows = 25
     cases = {  # name: (values, weights or None)
@@ -3009,7 +3031,7 @@ def layout_free_sums(torch, ops, ref) -> dict:
                                  torch.rand(rows, generator=g, device="cuda")),
         "wide, real weights": (torch.randn(rows, 6922, generator=g, device="cuda"),
                                torch.rand(rows, generator=g, device="cuda")),
-        "split plan, real weights": (torch.randn(rows, 512, generator=g, device="cuda"),
+        "D = 512, real weights": (torch.randn(rows, 512, generator=g, device="cuda"),
                                      torch.rand(rows, generator=g, device="cuda")),
     }
     bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
@@ -3924,8 +3946,9 @@ def row_json(sig, t):
 
 def kernel_timing_only(torch) -> int:
     """``--kernel-timing``: build, then phase 6's fixed rows of the segment
-    and cosine kernels alone, and the rows as JSON (for timing two versions
-    of the package in turns, ``--src``)."""
+    and cosine kernels alone and the LM rows (1, 2, n) -> 1 weighted at
+    n = 41.9M and 671M, and the rows as JSON (for timing two versions of
+    the package in turns, ``--src``)."""
     from repro_torch.kernels import build, ops, ref
 
     so = build.build()
@@ -3935,7 +3958,7 @@ def kernel_timing_only(torch) -> int:
     one = torch.zeros(1, device="cuda")
     print(f"[timing] floor: one launch of a 1-element add_ {graph_ms(torch, lambda: one.add_(1)):.5f} ms "
           f"(the same graph timing)")
-    rows = time_fixed_rows(torch, ops, ref)
+    rows = time_fixed_rows(torch, ops, ref, lm=True)
     print(json.dumps({"src": SRC, "kernel_timing": {
         f"{name}/{key}": row_json(sig, t) for name, key, sig, t in rows}}))
     print(smi())

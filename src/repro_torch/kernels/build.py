@@ -103,7 +103,7 @@ def library() -> ctypes.CDLL:
         vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.auxo_cosine_similarity.argtypes = [vp, vp, vp] + [ci] * 5 + [cf, ci, ci, vp]
         lib.auxo_cosine_similarity.restype = ci
-        lib.auxo_segment_aggregate.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+        lib.auxo_segment_aggregate.argtypes = [vp] * 4 + [ci] * 11 + [vp]
         lib.auxo_segment_aggregate.restype = ci
         lib.auxo_decode_attention.argtypes = [vp] * 6 + [ci] * 5 + [cl] * 4 + [ci, ci, ci, vp]
         lib.auxo_decode_attention.restype = ci

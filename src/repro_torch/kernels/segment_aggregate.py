@@ -6,10 +6,17 @@ version in ``kernels/ref.py``. Every sum is the plain version's, bit for
 bit: each segment's rows added in row order from +0 (``index_add_``).
 A fake tensor (``FakeTensorMode``: the dry run's memory and FLOP plan,
 for the card) gets the kernel's output allocation and no launch.
+
+The work split is ``plan``'s, pure Python: a block owns one segment of
+one cohort and a span of each row's column vectors, lists the segment's
+rows once (``CHUNK`` rows at a time) and sweeps the span with them; each
+(segment, vector) pair is one thread's chain of adds in row order, so no
+segment's rows are ever split between owners.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -23,23 +30,77 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ID_DTYPES = {torch.int32: 0, torch.int64: 1}
-CHUNK = 256  # rows a block sorts at once (kChunk in the source)
-TILE_BYTES = 128  # bytes of a row a block owns (kRowBytes)
-MAX_SPLIT = 8  # segment groups of a column tile, at most (kMaxSplit)
+CHUNK = 4096  # rows whose list a block holds at once (kChunk in the source)
+WAVES = 8  # blocks per SM the grid grows to before a block's pairs grow
+MIN_PAIRS = 32  # pairs a block takes at least (one warp's)
+ROWS_A_THREAD = 8  # rows a thread sums, at least, where segments are short (up to 4 pairs)
 
 
-def plan_splits(C: int, P: int, D: int, K: int, element_size: int, sms: int) -> int:
-    """Blocks over which each column tile's K segments are split (block y
-    of n sums segments ``[y*K//n, (y+1)*K//n)`` over all P rows, so no
-    segment's rows are cut): 1 unless the column tiles of all cohorts fill
-    less than a wave of ``sms`` SMs and P spans several chunks; then as
-    many groups (at most MAX_SPLIT and K) as bring the grid to two blocks
-    per SM."""
-    nch = math.ceil(P / CHUNK)
-    tiles = C * math.ceil(D * element_size / TILE_BYTES)
-    if nch <= 1 or K <= 1 or tiles >= sms:
-        return 1
-    return min(K, MAX_SPLIT, math.ceil(2 * sms / tiles))
+@dataclass(frozen=True)
+class Plan:
+    """A call's work split: ``vec_bytes`` bytes of a row a column vector,
+    ``rows`` of a pair a thread keeps in flight (2, of 4 pairs at once; 8;
+    32; 16-byte vectors always take 4 rows of 2 pairs), ``threads`` a
+    block, ``span`` vectors of one segment a block (``nspan`` blocks a
+    segment of a cohort), ``chunk`` rows listed at once."""
+
+    vec_bytes: int
+    rows: int
+    threads: int
+    span: int
+    chunk: int
+    nspan: int
+
+
+def vector_bytes(D: int, element_size: int, address: int = 0) -> int:
+    """The widest vector (16, 8, 4 or 2 bytes, at least one element) that
+    divides a row's bytes and the data's address: every row of every
+    cohort then starts on a whole vector."""
+    vb = 16
+    while vb > element_size and ((D * element_size) % vb or address % vb):
+        vb //= 2
+    return vb
+
+
+def plan(C: int, P: int, D: int, K: int, element_size: int, sms: int, address: int = 0) -> Plan:
+    """The work split of a (C, P, D) -> (C, K, D) call on ``sms`` SMs.
+
+    Each block owns one segment of one cohort and a span of its vectors.
+    The vector is the widest the rows allow, narrowed (down to 4 bytes)
+    while the (segment, vector) pairs of all cohorts would not give two
+    waves of 128-thread blocks: a thread keeps the same rows in flight
+    whatever the vector, so narrower vectors keep more bytes in flight.
+    A block takes ``ppb`` pairs: as many as bring the grid to two waves
+    (at least a warp's, at most ``ppt`` a thread: up to 4 where segments
+    are short, so that a thread sums ROWS_A_THREAD rows) or, past 8
+    blocks an SM, an 8th of an SM's share, so that a large call streams
+    megabytes a block for the one list it builds; with more segments than
+    that, a block takes a whole row. Every lane runs a batch's adds, so
+    the rows a pair keeps in flight follow the segments' mean length P /
+    K: 2 rows of 4 pairs under 4 rows; 32 rows from 32, or from 8 where
+    the grid is less than a wave (more rows a thread cost registers, so
+    blocks an SM); else 8. Blocks take 256 threads where the pairs fill
+    two waves of them (short segments, which take 4 pairs a thread, only
+    past 8 blocks an SM of 4 pairs a thread), or where the grid is less
+    than one wave (its lists are built by twice the warps)."""
+    vb = vector_bytes(D, element_size, address)
+    narrowest = max(element_size, min(4, vb))
+    while vb > narrowest and C * K * (D * element_size // vb) < 2 * sms * 128:
+        vb //= 2
+    nv = D * element_size // vb
+    pairs = C * K * nv
+    short = P < 4 * K
+    threads = 256 if pairs >= 2 * sms * 256 and (not short or pairs >= WAVES * sms * 4 * 256) else 128
+    ppt = max(1, min(4, ROWS_A_THREAD * K // max(P, 1)))
+    ppb = max(min(threads * ppt, max(MIN_PAIRS, pairs // (2 * sms))), math.ceil(pairs / (WAVES * sms)))
+    nspan = max(1, min(math.ceil(nv / ppb), WAVES * sms // (C * K)))
+    span = math.ceil(nv / nspan)
+    nspan = math.ceil(nv / span)
+    sub_wave = C * K * nspan <= sms
+    if sub_wave:
+        threads = 256
+    rows = 2 if short else (32 if P >= 32 * K or (P >= 8 * K and sub_wave) else 8)
+    return Plan(vb, rows, threads, span, max(1, min(P, CHUNK)), nspan)
 
 
 def segment_aggregate(
@@ -77,11 +138,12 @@ def segment_aggregate(
     out = torch.empty((C, K, D), dtype=torch.float32, device=dev)
     if C == 0 or K == 0 or D == 0 or is_fake(data):
         return out
-    nsplit = plan_splits(C, P, D, K, data.element_size(), build.sm_count(dev.index))
+    pl = plan(C, P, D, K, data.element_size(), build.sm_count(dev.index), data.data_ptr())
     err = build.launch(
         build.function("auxo_segment_aggregate"), dev,
         data.data_ptr(), ids.data_ptr(), None if weights is None else weights.data_ptr(),
-        out.data_ptr(), C, P, K, D, _DTYPES[data.dtype], _ID_DTYPES[ids.dtype], nsplit,
+        out.data_ptr(), C, P, K, D, _DTYPES[data.dtype], _ID_DTYPES[ids.dtype],
+        pl.vec_bytes, pl.rows, pl.threads, pl.span, pl.chunk,
     )
     if err != 0:
         raise RuntimeError(f"segment_aggregate kernel launch failed: cudaError {err}")

@@ -223,9 +223,9 @@ _SCRATCH = {"aten::_softmax_backward_data": _softmax_backward_scratch}
 
 class StepCounter(TorchDispatchMode):
     """Counts, for every aten op dispatched under it on the card's own
-    tensors, its FLOPs, the bytes it reads and writes (view ops and
-    allocations move none) and the live storage bytes (each storage rounded
-    to ALLOC_ROUND), keeping their peak."""
+    tensors, its FLOPs, the bytes it reads and writes (view ops, allocations
+    and ops that return no tensor move none) and the live storage bytes
+    (each storage rounded to ALLOC_ROUND), keeping their peak."""
 
     def __init__(self):
         super().__init__()
@@ -281,7 +281,9 @@ class StepCounter(TorchDispatchMode):
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
         if self._paused or any(t.device.type == "meta" for t in outs):
             return out  # shape work (DTensor's, or shapes on meta tensors): nothing on the card
-        if not func.is_view and not func.name().startswith("aten::empty"):
+        # an op that returns no tensor (``prim::device``, ``aten::size``: a
+        # metadata query) moves no bytes; XLA's cost analysis counts none
+        if outs and not func.is_view and not func.name().startswith("aten::empty"):
             ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
             self.bytes_accessed += sum(_tensor_bytes(t) for t in ins + outs)
         count = self._flop_registry.get(func._overloadpacket)

@@ -246,3 +246,58 @@ def test_softmax_backward_scratch_counts_in_the_peak(grad_t, out_t, copies):
         torch.ops.aten._softmax_backward_data(grad, out, -1, torch.float32)
     n = grad.numel() * 4
     assert counter.peak == base + n + copies * n  # the result and the scratch
+
+
+def test_a_query_that_returns_no_tensor_moves_no_bytes():
+    """``prim::device`` (which a view of a fake tensor dispatches) returns a
+    ``torch.device``: the counter charges it nothing, as XLA's cost
+    analysis counts no such op, while a matmul still counts its bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        x = mode.from_tensor(torch.empty(24, 40))
+        w = mode.from_tensor(torch.empty(40, 56))
+        counter = hlo.StepCounter()
+        with counter:
+            torch.ops.prim.device.default(x)
+            x.view_as(x)
+            assert x.device.type == "cpu"
+        assert counter.bytes_accessed == 0
+        with counter:
+            x @ w
+    assert counter.bytes_accessed == 4 * (24 * 40 + 40 * 56 + 24 * 56)
+    assert counter.flops == 2 * 24 * 40 * 56
+
+
+def test_mini_probe_counts_no_more_than_its_tensor_returning_ops(mesh22, monkeypatch):
+    """A 1-unit probe of reduced llama4-maverick's central step under fsdp
+    dispatches ``prim::device`` many times; its counted bytes are at most
+    the bytes of the ops that return a tensor (views and allocations
+    aside)."""
+    from torch.utils._pytree import tree_flatten
+
+    seen = {"prim::device": 0, "bytes": 0}
+    orig = hlo.StepCounter.__torch_dispatch__
+
+    def tensors(tree):
+        return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+    def dispatch(self, func, types, args=(), kwargs=None):
+        paused = self._paused
+        out = orig(self, func, types, args, kwargs)
+        if out is NotImplemented:
+            return out
+        outs = tensors(out)
+        if func.name() == "prim::device":
+            seen["prim::device"] += 1
+        elif (outs and not paused and not func.is_view and not func.name().startswith("aten::empty")
+              and all(t.device.type != "meta" for t in outs)):
+            seen["bytes"] += sum(hlo._tensor_bytes(t) for t in tensors((args, kwargs or {})) + outs)
+        return out
+
+    monkeypatch.setattr(hlo.StepCounter, "__torch_dispatch__", dispatch)
+    cfg = _mini_cfg("llama4_maverick_400b_a17b")
+    counts = dryrun.probe_step(dryrun._with_units(cfg, 1), "train", {"tokens": SDS((8, 32), torch.int32)},
+                               MINI_STEP, True, mesh=mesh22, policy="fsdp")
+    assert seen["prim::device"] > 100
+    assert 0 < counts.bytes_accessed <= seen["bytes"]

@@ -7,12 +7,17 @@ them).
 The CUDA kernels cannot run here; these emulations repeat what each one
 adds to what, and in which order, so that a change of order that leaves
 the JAX tolerances is caught on the CPU:
-  - segment sum: a stable sort of each 256-row chunk by segment; each
-    segment's rows added in index order, one after another, onto the
-    running sum the earlier chunks left (+0 before the first), for every
-    D; a split hands each block a group of segments over all rows. That is
-    the plain version's order (``index_add_``), so the emulation is held
-    bit-equal to it wherever a segment's rows sit;
+  - segment sum: each block of the plan (``segment_aggregate.plan``) owns
+    one segment and a span of column vectors, lists the segment's rows in
+    row order (a chunk of ``CHUNK`` rows at a time) and adds each row onto
+    the segment's running sum, +0 before the first chunk, the value the
+    earlier chunks stored after it. That is the plain version's
+    order (``index_add_``), so the emulation is held bit-equal to it
+    wherever a segment's rows sit. The planner's own tests replay its
+    mapping of blocks and threads to (segment, vector) pairs: every output
+    element has one owner, the grid reaches two waves of 132 SMs where the
+    work allows, and the main-path and LM calls get the spans PERF.md
+    describes;
   - cosine, K <= 8: per-lane partials of |x|^2, the dots and the
     centroid norms over 16-byte vectors of D, reduced by a butterfly over
     the 32 lanes (the interleaved reduction gives each slot that order);
@@ -70,9 +75,6 @@ def _inputs(jnp, rng, shape, dname):
 
 
 # ------------------------------------------------------------ segment sum
-CHUNK = sa.CHUNK
-
-
 def _butterfly(v: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis (32 lanes) as the xor butterfly 16, 8, 4, 2, 1."""
     for o in (16, 8, 4, 2, 1):
@@ -80,30 +82,24 @@ def _butterfly(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0]
 
 
-def _chunk(x, key, w, acc, s0, s1):
-    """One chunk of rows for the block of segments [s0, s1): the rows in
-    the stable sort's order (segment, then index), each added onto its
-    segment's running sum in ``acc`` (the earlier chunks' sum, +0 before
-    the first chunk); other segments' rows are dropped."""
-    for t in torch.argsort(key, stable=True).tolist():
-        s = int(key[t])
-        if s0 <= s < s1:
-            acc[s] = acc[s] + w[t] * x[t]  # the product rounded before the add, as __fmul_rn
-
-
-def emulate_segment(x, ids, K, w=None, sms=SMS):
-    """One cohort (x (P, D), ids (P,)) in the kernel's order, as f32."""
-    el = x.element_size()
+def emulate_segment(x, ids, K, w=None, sms=SMS, chunk=None):
+    """One cohort (x (P, D), ids (P,)) in the kernel's order, as f32: each
+    segment's block lists its rows a chunk at a time, in row order, and
+    each row is added onto the segment's running sum (+0 before the first
+    chunk, the value the earlier chunks stored after it); other ids are
+    dropped. A block's column span changes no sum, so the emulation sums
+    whole rows."""
     x = x.float()
     P, D = x.shape
     w = torch.ones(P) if w is None else w.float()
-    key = torch.where((ids >= 0) & (ids < K), ids.long(), torch.full_like(ids.long(), K))
-    n = sa.plan_splits(1, P, D, K, el, sms)
+    chunk = chunk or sa.plan(1, P, D, K, 4, sms).chunk
+    key = ids.long().tolist()
     out = torch.zeros(K, D)
-    for g in range(n):  # block g of the column tile: segments [g K / n, (g + 1) K / n)
-        for c0 in range(0, P, CHUNK):
-            rows = slice(c0, min(P, c0 + CHUNK))
-            _chunk(x[rows], key[rows], w[rows], out, g * K // n, (g + 1) * K // n)
+    for k in range(K):
+        for p0 in range(0, P, chunk):
+            for p in range(p0, min(P, p0 + chunk)):  # the chunk's list: the segment's rows in order
+                if key[p] == k:
+                    out[k] = out[k] + w[p] * x[p]  # the product rounded first, as __fmul_rn
     return out
 
 
@@ -132,44 +128,96 @@ def test_segment_order_matches_jax(jax_ops, shape, dname, weighted):
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("P, D, K, sms", [(1024, 256, 16, 132), (8192, 512, 32, 132),
-                                          (2000, 64, 5, 132), (700, 48, 3, 4)])
-def test_segment_split_order_matches_plain(P, D, K, sms):
-    """Segments split over the blocks of a column tile: the plain version's bits."""
-    assert sa.plan_splits(1, P, D, K, 4, sms) > 1
+@pytest.mark.parametrize("P, D, K, chunk", [(1024, 64, 16, 256), (2000, 8, 5, 300), (700, 48, 3, 64),
+                                            (5000, 3, 1, sa.CHUNK)])
+def test_segment_chunks_continue_in_row_order(P, D, K, chunk):
+    """Past a chunk of rows each chunk continues the sums the earlier ones
+    stored: the plain version's bits."""
+    assert P > chunk
     g = torch.Generator().manual_seed(P + D)
     x = torch.randn(P, D, generator=g)
     ids = torch.randint(-1, K + 1, (P,), generator=g)
     w = torch.rand(P, generator=g)
-    assert torch.equal(_bits(emulate_segment(x, ids, K, w, sms)), _bits(ref.segment_aggregate(x, ids, K, w)))
+    got = emulate_segment(x, ids, K, w, chunk=chunk)
+    assert torch.equal(_bits(got), _bits(ref.segment_aggregate(x, ids, K, w)))
 
 
-@pytest.mark.parametrize("C, P, D, K, el", [(1, 125, 6922, 7, 4), (1, 125, 1, 7, 4),
-                                            (4, 64, 128, 2, 4), (4, 64, 1, 2, 4),
-                                            (1, 125, 6922, 63, 2), (16, 100, 128, 2, 4)])
-def test_segment_main_path_takes_no_split(C, P, D, K, el):
-    """The main path's calls (stage 2, the clustering sums, counts and
-    dispersion) have one chunk of rows: one block per column tile."""
-    assert sa.plan_splits(C, P, D, K, el, SMS) == 1
+def _owners(C, P, D, K, el, address=0):
+    """Replays the kernel's mapping of blocks to (segment, vector) pairs
+    (block x of a cohort: segment x // nspan, vectors [v0, v0 + span) of
+    span x % nspan; vector j of the span is thread j % threads's, whatever
+    the chunk): the number of times each output element (C, K, D) is
+    owned, and the plan."""
+    pl = sa.plan(C, P, D, K, el, SMS, address)
+    E = pl.vec_bytes // el
+    nv = D // E
+    hits = np.zeros((C, K, D), np.int64)
+    for x in range(K * pl.nspan):
+        s, sp = divmod(x, pl.nspan)
+        v = np.arange(sp * pl.span, min(nv, (sp + 1) * pl.span))
+        for e in range(E):
+            np.add.at(hits, (slice(None), s, v * E + e), 1)
+    return hits, pl
 
 
-@pytest.mark.parametrize("C, P, D, K, el, want", [(1, 8192, 512, 32, 4, 8), (1, 8192, 512, 3, 4, 3),
-                                                  (1, 2000, 1, 1, 4, 1), (1, 600, 6922, 5, 4, 1),
-                                                  (2, 4096, 256, 16, 2, 8)])
-def test_segment_split_never_cuts_a_segment(C, P, D, K, el, want):
-    """A split hands whole segments to blocks: at most K groups (one segment
-    is never split), none when the column tiles fill a wave (D = 6922)."""
-    assert sa.plan_splits(C, P, D, K, el, SMS) == want
+@pytest.mark.parametrize("C, P, D, K, el, address", [(1, 125, 6922, 7, 4, 0), (1, 125, 1, 7, 4, 0),
+                                                     (4, 64, 128, 2, 4, 0), (3, 600, 40, 400, 4, 0),
+                                                     (1, 8192, 512, 32, 2, 0), (2, 37, 7, 5, 2, 6)])
+def test_segment_plan_owns_every_output_once(C, P, D, K, el, address):
+    """Every (cohort, segment, column) has exactly one owning block and
+    thread, so no segment's rows are split between owners; a chunk never
+    passes CHUNK rows."""
+    hits, pl = _owners(C, P, D, K, el, address)
+    assert (hits == 1).all()
+    assert pl.threads % 32 == 0 and pl.threads <= 256 and pl.rows in (2, 8, 32)
+    assert 1 <= pl.chunk <= sa.CHUNK and pl.chunk == max(1, min(P, sa.CHUNK))
 
 
-def test_segment_plan_covers_every_segment():
-    for P in (1, 257, 1000, 4096, 100000):
-        for D in (1, 7, 32, 256, 512, 6922):
-            for K in (1, 2, 5, 32, 400):
-                n = sa.plan_splits(1, P, D, K, 4, SMS)
-                groups = [range(g * K // n, (g + 1) * K // n) for g in range(n)]
-                assert 1 <= n <= min(K, sa.MAX_SPLIT) and all(len(r) for r in groups)
-                assert [s for r in groups for s in r] == list(range(K))
+@pytest.mark.parametrize("C, D, K, el", [(1, 6922, 63, 4), (1, 512, 32, 4), (1, 4096, 4, 2),
+                                         (16, 6922, 8, 4), (1, 1, 5000, 4), (1, 41_943_040, 1, 4)])
+def test_segment_grid_fills_two_waves(C, D, K, el):
+    """Where the pairs give every block of two waves at least a warp's
+    worth, the grid has two waves of 132 SMs; it passes WAVES blocks an SM
+    only where the segments (a block each at least) do."""
+    pl = sa.plan(C, 100, D, K, el, SMS)
+    pairs = C * K * (D * el // pl.vec_bytes)
+    blocks = C * K * pl.nspan
+    assert blocks >= min(2 * SMS, pairs // sa.MIN_PAIRS)
+    assert blocks <= max(sa.WAVES * SMS, C * K)
+    if pairs >= 2 * SMS * pl.threads:
+        assert blocks >= 2 * SMS
+
+
+@pytest.mark.parametrize("call, want", [
+    # stage 2: 4-byte vectors (rows of 27,688 bytes take 8, too few pairs),
+    # 55 spans of one segment's 6922 columns, 8 of its ~18 rows in flight
+    ((1, 125, 6922, 7), dict(vec_bytes=4, rows=8, threads=128, span=126, nspan=55)),
+    # its D = 1 denominator: a block a segment, a grid under a wave: 256
+    # threads, 32 rows in flight
+    ((1, 125, 1, 7), dict(vec_bytes=4, rows=32, threads=256, span=1, nspan=1)),
+    # the clustering sums: 4 spans of 32 columns of one segment
+    ((4, 64, 128, 2), dict(vec_bytes=4, rows=32, threads=256, span=32, nspan=4)),
+    # the LM leaves: 1056 blocks (8 an SM) of ~0.64M columns, 16-byte vectors
+    ((1, 2, 671_088_640, 1), dict(vec_bytes=16, rows=2, threads=256, span=158_876, nspan=1056)),
+    ((1, 2, 704_643_072, 1), dict(vec_bytes=16, rows=2, threads=256, span=166_819, nspan=1056)),
+])
+def test_segment_plan_of_the_main_and_lm_calls(call, want):
+    C, P, D, K = call
+    pl = sa.plan(C, P, D, K, 4, SMS)
+    assert {k: getattr(pl, k) for k in want} == want
+    assert pl.chunk == P
+
+
+@pytest.mark.parametrize("D, el, address, want", [(6922, 4, 0, 8), (6922, 2, 0, 4), (6923, 2, 0, 2),
+                                                  (512, 4, 4, 4), (1, 4, 0, 4), (8, 2, 8, 8)])
+def test_segment_vector_divides_every_row(D, el, address, want):
+    """The widest vector divides a row's bytes and the data's address, so
+    no row has a ragged start or tail; the plan narrows it no further than
+    4 bytes, or one bf16 where the rows force it."""
+    assert sa.vector_bytes(D, el, address) == want
+    pl = sa.plan(1, 10, D, 3, el, SMS, address)
+    assert (D * el) % pl.vec_bytes == 0 and address % pl.vec_bytes == 0
+    assert pl.vec_bytes >= min(4, want)
 
 
 # one segment's 25 rows placed across a call: (C, P, block, first row).
