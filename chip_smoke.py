@@ -18,6 +18,7 @@
     python3 chip_smoke.py --spmd          # build + phase 16 + phase 17
     python3 chip_smoke.py --maverick      # build + phase 18 alone, its step at
         # the full 48 layers
+    python3 chip_smoke.py --drivers       # build + phase 19 alone
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -168,6 +169,24 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      version on a CPU copy, the cosine's 0), the second step's seconds
      beside the plan's roofline, and the card's busy share under the
      profiler. The fake group moves no data: the loss is not held.
+ 19. the drivers: (a) granite-3-2b's ``long_500k`` decode (its
+     sliding-window variant: a 4096-slot ring, batch 1; the data axis on
+     the ring, ``model`` on hd) and (b) its ``decode_32k`` decode under
+     ``--cache-seq-shard`` (batch 128 over data, ``model`` on the 32,768
+     slots), each at full width (bf16, depth cut to 8 layers: the plan
+     probes 1, 2 and 3) as rank 0 of the 16 x 16 fake world on rank 0's
+     real local shards, params under tp drawn shard-locally, 4 decode
+     steps from an index 4 short of the shape's length: plan / measured
+     >= 0.9 and every step's collectives equal to the fake-tensor probe's;
+     (c) ``launch.train --rounds 3`` as a 1-rank NCCL group under
+     ``torch.distributed.run`` against the one-device driver in this
+     process: checkpoints equal at tests/test_torch_train_ranks.py's
+     tolerances, the same printed losses, the segment kernel launched;
+     (d) the four ``examples/port_*.py`` on the card at their defaults
+     (``port_train_lm_federated`` at ``--rounds 30``), each one's kernel
+     launches counted from 0 (quickstart and robust_fl launch both round
+     kernels, train_lm_federated the segment kernel, serve_cohorts none)
+     and its last lines printed.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -3420,34 +3439,26 @@ def spmd_profiles(torch) -> dict:
     return out
 
 
-def _rank0_shard(full, mesh, placements, spmd):
-    """Rank 0's shard of ``full`` as a DTensor on ``mesh`` (a copy)."""
-    local = full
-    for i, p in enumerate(placements):
-        if p.is_shard():
-            local = local.chunk(mesh.size(i), dim=p.dim)[0]
-    return spmd.from_local(local.contiguous().clone(), mesh, placements)
-
-
-def checked_segments(torch, ops, ref, log: list):
+def checked_segments(torch, ops, ref, log: list, tag: str, limit=None):
     """Wrap ``ops.segment_aggregate``: each call on plain CUDA tensors (a
-    card's local shards) is held bit-equal to the plain version on a CPU
-    copy (NaNs, which a fake group's unfilled buffers may feed in, must sit
-    at the same places). Returns the undo."""
+    card's local shards), or the first ``limit`` of them, is held bit-equal
+    to the plain version on a CPU copy (NaNs, which a fake group's unfilled
+    buffers may feed in, must sit at the same places) and logged. Returns
+    the undo."""
     from repro_torch.utils import spmd
 
     orig = ops.segment_aggregate
 
     def seg(data, ids, k, weights=None):
         out = orig(data, ids, k, weights)
-        if spmd.any_dtensor(data, ids, weights) or data.device.type != "cuda":
+        if spmd.any_dtensor(data, ids, weights) or data.device.type != "cuda" or len(log) == limit:
             return out
         want = ref.segment_aggregate(data.cpu(), ids.cpu(), k, None if weights is None else weights.cpu())
         got = out.cpu()
         nan = torch.isnan(want)
         if not (torch.equal(nan, torch.isnan(got))
                 and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
-            raise AssertionError(f"17c: a segment call {tuple(data.shape)} K {k} is not the plain version's bits")
+            raise AssertionError(f"{tag}: a segment call {tuple(data.shape)} K {k} is not the plain version's bits")
         log.append((tuple(data.shape), int(k), data.dtype))
         return out
 
@@ -3491,7 +3502,7 @@ def spmd_round(torch, card, ops, ref, cs, sa) -> dict:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         full = model.init(rnd.key(0), device="cuda")
-        params = tree_map(lambda a, p: _rank0_shard(a, mesh, p, spmd), full,
+        params = tree_map(lambda a, p: spmd.place(a, mesh, p), full,
                           shd.param_shardings(full, mesh, "tp"))
         del full
         gc.collect()
@@ -3499,9 +3510,9 @@ def spmd_round(torch, card, ops, ref, cs, sa) -> dict:
         # Yogi's m and v under fsdp and the replicated clustering state, at local shape
         opt, clust = local.train_state(params, mesh, 2, 128, device="cuda")
         toks = torch.from_numpy(synth_corpus(LM_C, LM_M, LM_S, cfg.vocab)[0]).cuda()
-        batch = {"tokens": _rank0_shard(toks, mesh, shd.batch_shardings({"tokens": toks}, mesh)["tokens"], spmd)}
+        batch = {"tokens": spmd.place(toks, mesh, shd.batch_shardings({"tokens": toks}, mesh)["tokens"])}
         step = steps.make_train_step(model, sc)
-        undo = checked_segments(torch, ops, ref, seg_log)
+        undo = checked_segments(torch, ops, ref, seg_log, "17c")
         sa.launches = cs.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3773,7 +3784,7 @@ def mav_step(torch, card, ops, ref, cs, sa, layers: int) -> dict:
         state_gb = sum(a.to_local().numel() * a.to_local().element_size()
                        for a in leaves({"p": params, "o": opt, "c": clust, "b": batch})) / 1e9
         step = steps.make_central_train_step(model, sc, n_clients=TRAIN_CLIENTS)
-        undo = checked_segments(torch, ops, ref, seg_log)
+        undo = checked_segments(torch, ops, ref, seg_log, "18c")
         sa.launches = cs.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3939,6 +3950,327 @@ def placement_only(torch) -> int:
     return 0
 
 
+# --------------------- phase 19: split decode, the train driver's ranks, the examples
+SPLIT_LAYERS = 8  # 19a/19b's depth: full width, 8 of granite's 40 layers (the plan probes 1, 2 and 3)
+SPLIT_STEPS = 4  # decode steps of 19a and 19b
+SPLIT_CASES = (("19a", "long_500k", False), ("19b", "decode_32k", True))  # (phase, shape, --cache-seq-shard)
+TRAIN_ARGS = ["--rounds", "3", "--checkpoint-every", "3"]  # 19c, at the driver's default widths
+EXAMPLE_ARGS = {"port_quickstart": [], "port_robust_fl": [], "port_serve_cohorts": [],
+                "port_train_lm_federated": ["--rounds", "30"]}
+# 19d: the round kernels each example must launch (the serving example runs none)
+EXAMPLE_KERNELS = {"port_quickstart": ROUND_KERNELS, "port_robust_fl": ROUND_KERNELS,
+                   "port_serve_cohorts": (), "port_train_lm_federated": ("segment_aggregate",)}
+# 19d: the segment calls held against the plain version, where not all: the LM example's first two
+# rounds (13 calls a round, each summing 8 clients' deltas of a ~100M-param leaf set)
+EXAMPLE_CHECKED = {"port_train_lm_federated": 26}
+
+
+def split_decode(torch, card, shape_name: str, seq_shard: bool) -> dict:
+    """19a / 19b: granite-3-2b's decode at ``shape_name`` (its dry-run
+    variant, bf16) as rank 0 of the 16 x 16 fake world, on rank 0's real
+    local shards: params under tp (drawn shard-locally), the cache placed
+    by ``cache_shardings(seq_shard=)`` from an index near the shape's end;
+    ``SPLIT_STEPS`` decode steps against the SPMD plan and the fake-tensor
+    probe of one step."""
+    import collections
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun, local, steps
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.specs import effective_config, input_specs
+    from repro_torch.models import build_model
+    from repro_torch.utils import hlo, spmd
+    from repro_torch.utils.tree import leaves, tree_map
+
+    shape = SHAPES[shape_name]
+    cfg = effective_config(get_config(GRANITE), shape).replace(dtype=torch.bfloat16, n_layers=SPLIT_LAYERS)
+    model = build_model(cfg)
+    sc = steps.StepConfig()
+    spec = input_specs(get_config(GRANITE), shape_name)
+    B = spec["tokens"].shape[0]
+    lmesh.init_fake_world(256)
+    try:
+        mesh = lmesh.make_production_mesh(device_type="cuda")
+        t0 = time.perf_counter()
+        plan = dryrun.plan_step(cfg, "decode", spec, mesh, "tp", sc, cache_len=shape.seq_len,
+                                seq_shard_cache=seq_shard)
+        fake = dryrun.probe_step(cfg, "decode", spec, sc, cache_len=shape.seq_len, mesh=mesh, policy="tp",
+                                 seq_shard_cache=seq_shard)
+        plan_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        (torch.ones(8, 8, device="cuda", dtype=torch.bfloat16)
+         @ torch.ones(8, 8, device="cuda", dtype=torch.bfloat16)).sum().item()
+        base = torch.cuda.memory_allocated()
+        params = local.init_params(model, rnd.key(0), mesh, "tp", device="cuda")
+        meta = model.init_cache(B, shape.seq_len, torch.bfloat16, device="meta")
+        cpl = shd.cache_shardings(meta, B, mesh, seq_shard)
+        index = shape.seq_len - SPLIT_STEPS  # the context's last positions: the ring has wrapped
+
+        def shard(a, pl):
+            local_shape = spmd.block(tuple(a.shape), pl, tuple(mesh.shape), (0,) * mesh.ndim).local_shape
+            if a.dtype.is_floating_point:
+                t = torch.randn(local_shape, device="cuda", dtype=torch.float32).to(a.dtype)
+            else:
+                t = torch.full(local_shape, index, device="cuda", dtype=a.dtype)
+            return spmd.from_local(t, mesh, pl)
+
+        cache = tree_map(shard, meta, cpl)
+        toks = torch.from_numpy(synth_corpus(B, 1, 1, cfg.vocab)[0].reshape(B, 1)).cuda()
+        batch = {"tokens": spmd.place(toks, mesh, shd.batch_shardings({"tokens": toks}, mesh)["tokens"])}
+        step = steps.make_serve_step(model, sc)
+        ring = tuple(cache["blocks"]["k"].shape)
+        local_ring = tuple(cache["blocks"]["k"].to_local().shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        records, logits = [], None
+        with implicit_replication():
+            for _ in range(SPLIT_STEPS):
+                def one():
+                    nonlocal logits, cache
+                    logits, cache = step(params, cache, batch)
+                    return logits
+                got = hlo.count_step(one, leaves({"p": params, "c": cache, "b": batch}))
+                records.append(collections.Counter(got.collectives))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / SPLIT_STEPS
+        measured = (torch.cuda.max_memory_allocated() - base) / 1e9
+        idx = cache["blocks"]["index"]
+        idx = int((idx.to_local() if spmd.is_dtensor(idx) else idx).reshape(-1)[0])
+        lshape = tuple(logits.to_local().shape)
+        del params, cache, batch, logits
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan_gb = plan["plan_bytes"] / 1e9
+    probe = collections.Counter(fake.collectives)
+    return {"plan_gb": plan_gb, "measured_gb": measured, "ratio": plan_gb / measured,
+            "state_gb": plan["state_bytes"] / 1e9, "cache_gb": plan["state_by_part"]["cache"] / 1e9,
+            "step_peak_gb": plan["step_peak_bytes"] / 1e9, "plan_s": plan_s, "step_s": step_s,
+            "collectives": [sum(r.values()) for r in records], "probe_collectives": sum(probe.values()),
+            "equal": all(r == probe for r in records), "by_op": hlo.collective_bytes(fake.collectives),
+            "roofline": plan["roofline"], "cache": ring, "local_cache": local_ring, "index": idx,
+            "start": index, "logits": lshape, "diff": [sorted((r - probe).items(), key=repr)[:3] for r in records]}
+
+
+def split_decode_phase(torch, card) -> dict:
+    """19a and 19b."""
+    out = {}
+    for tag, shape_name, seq_shard in SPLIT_CASES:
+        r = split_decode(torch, card, shape_name, seq_shard)
+        r3 = r["roofline"]
+        print(f"[drivers] {tag} {GRANITE} {shape_name}{' --cache-seq-shard' if seq_shard else ''} full width, "
+              f"{SPLIT_LAYERS} layers, bf16, tp, rank 0 of the 16 x 16 fake world, real local shards: cache "
+              f"{r['cache']} per layer stack, rank 0's {r['local_cache']}; index {r['start']} -> {r['index']} "
+              f"after {SPLIT_STEPS} steps, {r['step_s'] * 1e3:.2f} ms a step (the fake group moves no data); "
+              f"plan {r['plan_gb']:.4f} GB (state {r['state_gb']:.4f}, cache {r['cache_gb']:.4f}, step peak "
+              f"{r['step_peak_gb']:.4f}; planned in {r['plan_s']:.1f} s) vs measured {r['measured_gb']:.4f} GB "
+              f"({card}): plan / measured {r['ratio']:.4f}; roofline compute {r3['compute_s'] * 1e3:.4f} ms, "
+              f"memory {r3['memory_s'] * 1e3:.4f} ms, collective {r3['collective_s'] * 1e3:.4f} ms", flush=True)
+        print(f"[drivers] {tag} collectives per step: real run {r['collectives']}, fake-tensor probe "
+              f"{r['probe_collectives']}, equal {r['equal']}; per-card GB by op (probe, {SPLIT_LAYERS} layers) "
+              f"{({k: round(v / 1e9, 6) for k, v in r['by_op'].items()})}", flush=True)
+        if r["ratio"] < PLAN_GATE:
+            raise AssertionError(f"{tag}: the plan {r['plan_gb']:.4f} GB is more than 10% below the measured "
+                                 f"peak {r['measured_gb']:.4f} GB")
+        if not r["equal"]:
+            raise AssertionError(f"{tag}: the real run's collectives differ from the probe's: {r['diff']}")
+        if r["index"] != r["start"] + SPLIT_STEPS:
+            raise AssertionError(f"{tag}: the cache index went {r['start']} -> {r['index']}")
+        out[tag] = r
+    return out
+
+
+def ckpt_gap(np, a: str, b: str) -> dict:
+    """The largest |difference| per checkpoint file of two ``launch.train``
+    checkpoint directories, and whether they hold at the tests' tolerances
+    (tests/test_torch_train_ranks.py: rtol 1e-4, atol 1e-5, counts equal,
+    centroids at 1e-4)."""
+    gaps, ok = {}, True
+    for name in ("params", "opt", "clust"):
+        x, y = np.load(os.path.join(a, f"{name}.npz")), np.load(os.path.join(b, f"{name}.npz"))
+        ok &= sorted(x.files) == sorted(y.files)
+        gaps[name] = 0.0
+        for k in y.files:
+            u, v = x[k].astype(np.float64), y[k].astype(np.float64)
+            gaps[name] = max(gaps[name], float(np.abs(u - v).max()) if u.size else 0.0)
+            if k == "['counts']":
+                ok &= bool(np.array_equal(u, v))
+            else:
+                atol, rtol = (1e-4, 0.0) if k == "['centroids']" else (1e-5, 1e-4)
+                ok &= bool(np.allclose(u, v, rtol=rtol, atol=atol))
+    return {"max_abs": gaps, "ok": ok}
+
+
+def train_rank(torch, argv) -> int:
+    """``--train-rank FLAGS``: ``launch.train FLAGS`` as the rank that
+    ``torch.distributed.run`` starts in 19c, every segment call held against
+    the plain version; prints its launches, counted from 0, as the last line."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.launch import train
+
+    build.build()
+    log = []
+    undo = checked_segments(torch, ops, ref, log, "19c")
+    sa.launches = cs.launches = 0
+    try:
+        train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    print(json.dumps({"launches": {"cosine_similarity": cs.launches, "segment_aggregate": sa.launches},
+                      "checked": len(log)}))
+    return 0
+
+
+def train_ranks(torch, np, ops, ref, card, cs, sa) -> dict:
+    """19c: ``launch.train`` at its default widths under
+    ``torch.distributed.run`` as a 1-rank NCCL group (which trains as a run
+    alone does), its checkpoint against the one-device driver's from this
+    process; in both runs every segment call is held against the plain
+    version and the launches are counted from 0."""
+    import io
+    import tempfile
+
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        one, ranked = os.path.join(tmp, "one"), os.path.join(tmp, "ranked")
+        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env.pop("WORLD_SIZE", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                               "1", os.path.join(ROOT, "chip_smoke.py"), "--train-rank", *TRAIN_ARGS,
+                               "--ckpt-dir", ranked],
+                              env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              timeout=600)
+        ranked_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"19c: the 1-rank NCCL group failed: {proc.stderr[-3000:]}")
+        rank = json.loads(proc.stdout.strip().splitlines()[-1])
+        log = []
+        undo = checked_segments(torch, ops, ref, log, "19c")
+        sa.launches = cs.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train.main(TRAIN_ARGS + ["--ckpt-dir", one])
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        one_s = time.perf_counter() - t0
+        launches = {"cosine_similarity": cs.launches, "segment_aggregate": sa.launches}
+        gap = ckpt_gap(np, ranked, one)
+        files = {n: [np.load(os.path.join(d, f"{n}.npz")) for d in (ranked, one)] for n in ("params", "opt", "clust")}
+        same = all(np.array_equal(a[k], b[k]) for a, b in files.values() for k in b.files)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith(("round", "placement"))]
+    want = [l for l in buf.getvalue().splitlines() if l.startswith("round")]
+    print(f"[drivers] 19c launch.train {' '.join(TRAIN_ARGS)} as a 1-rank NCCL group (torch.distributed.run "
+          f"--standalone, {ranked_s:.1f} s with the process start) vs one device in this process ({one_s:.1f} s): "
+          f"{lines}; one device {want}; checkpoints' max |diff| {gap['max_abs']}, bit-equal {same}, equal at the "
+          f"tests' tolerances {gap['ok']}; launches: the rank's {rank['launches']} ({rank['checked']} segment calls "
+          f"held against the plain version), the one-device driver's {launches} ({len(log)} held) ({card})",
+          flush=True)
+    if not gap["ok"]:
+        raise AssertionError(f"19c: the 1-rank group's checkpoint differs from one device's: {gap}")
+    if [l.split("(")[0] for l in lines if l.startswith("round")] != [l.split("(")[0] for l in want]:
+        raise AssertionError("19c: the printed losses differ")
+    for who, got, held in (("the rank", rank["launches"], rank["checked"]), ("one device", launches, len(log))):
+        if got["segment_aggregate"] <= 0 or held != got["segment_aggregate"]:
+            raise AssertionError(f"19c: {who}: {got} launches, {held} segment calls held")
+    return {"ranked_s": ranked_s, "one_s": one_s, "gap": gap, "bit_equal": same, "launches": rank["launches"],
+            "one_device_launches": launches}
+
+
+def run_examples(torch, ops, ref, card, cs, sa) -> dict:
+    """19d: the four ``examples/port_*.py`` on the card in this process,
+    each one's round-kernel launches counted from 0 and its segment calls
+    (or the first ``EXAMPLE_CHECKED`` of them) held against the plain
+    version."""
+    import io
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    out = {}
+    for name, args in EXAMPLE_ARGS.items():
+        mod = __import__(name)
+        buf = io.StringIO()
+        log = []
+        undo = checked_segments(torch, ops, ref, log, f"19d {name}", EXAMPLE_CHECKED.get(name))
+        sa.launches = cs.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(args)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        secs = time.perf_counter() - t0
+        launches = {"cosine_similarity": cs.launches, "segment_aggregate": sa.launches}
+        last = [l for l in buf.getvalue().splitlines() if l.strip()][-3:]
+        print(f"[drivers] 19d {name}.py {' '.join(args)} on the card in {secs:.1f} s, with {len(log)} segment "
+              f"calls held against the plain version ({card}): kernel launches {launches}; last lines {last}",
+              flush=True)
+        for k in EXAMPLE_KERNELS[name]:
+            if launches[k] <= 0:
+                raise AssertionError(f"19d: {name} never launched {k}: {launches}")
+        if len(log) != min(launches["segment_aggregate"], EXAMPLE_CHECKED.get(name, launches["segment_aggregate"])):
+            raise AssertionError(f"19d: {name}: {len(log)} of {launches['segment_aggregate']} segment calls held")
+        if name == "port_quickstart" and not (res["hist"][-1]["n_cohorts"] >= 2
+                                              and res["hist"][-1]["acc_mean"] > res["base"][-1]["acc_mean"]):
+            raise AssertionError(f"19d: {name}: {res['hist'][-1]} against the baseline {res['base'][-1]}")
+        if name == "port_robust_fl" and not all(0.0 <= h[-1]["acc_mean"] <= 1.0 for _, h in res["runs"].values()):
+            raise AssertionError(f"19d: {name}: an accuracy outside [0, 1]")
+        if name == "port_serve_cohorts" and not all(int(t.min()) >= 0 and int(t.max()) < 1024 for t in res.values()):
+            raise AssertionError(f"19d: {name}: a token outside the vocabulary")
+        if name == "port_train_lm_federated" and not all(
+                math.isfinite(h["loss"]) and sum(h["counts"]) == 8 for h in res):
+            raise AssertionError(f"19d: {name}: {res[-1]}")
+        out[name] = {"seconds": secs, "launches": launches, "last": last, "checked": len(log)}
+    return out
+
+
+def drivers_phase(torch, np, ops, ref, card, cs, sa) -> dict:
+    """Phase 19: 19a/19b the split decodes, 19c the train driver as a
+    1-rank group, 19d the examples."""
+    t0 = time.perf_counter()
+    split = split_decode_phase(torch, card)
+    ranks = train_ranks(torch, np, ops, ref, card, cs, sa)
+    ex = run_examples(torch, ops, ref, card, cs, sa)
+    launches = {k: {name: e["launches"][k] for name, e in ex.items()} for k in ROUND_KERNELS}
+    launches["segment_aggregate"]["launch.train"] = ranks["launches"]["segment_aggregate"]
+    secs = time.perf_counter() - t0
+    print(f"[drivers] phase 19 took {secs:.1f} s", flush=True)
+    return {"split": split, "ranks": ranks, "examples": ex, "launches": launches, "seconds": secs}
+
+
+def drivers_only(torch) -> int:
+    """``--drivers``: build, then phase 19 alone."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import segment_aggregate as sa
+
+    card = smi()
+    print(card)
+    print(f"[build] {build.build()}")
+    out = drivers_phase(torch, np, ops, ref, card, cs, sa)
+    print(json.dumps({"drivers": out}, default=str))
+    print(card)
+    return 0
+
+
 def row_json(sig, t):
     return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
@@ -3996,6 +4328,8 @@ def main(argv) -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         return fail(f"the port package is missing under {SRC}")
     sys.path.insert(0, SRC)
+    if "--train-rank" in argv:
+        return train_rank(torch, argv[argv.index("--train-rank") + 1:])
     if "--decode-timing" in argv:
         return decode_timing_only(torch)
     if "--kernel-timing" in argv:
@@ -4018,6 +4352,8 @@ def main(argv) -> int:
         return spmd_only(torch)
     if "--maverick" in argv:
         return maverick_only(torch)
+    if "--drivers" in argv:
+        return drivers_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -4260,6 +4596,12 @@ def main(argv) -> int:
     for r in report:
         if r["name"] in ROUND_KERNELS:
             r["maverick_launches"] = mav["launches"][r["name"]]
+
+    # ----------------- phase 19: split decode, launch.train's ranks, the examples
+    drv = drivers_phase(torch, np, ops, ref, card, cs, sa)
+    for r in report:
+        if r["name"] in ROUND_KERNELS:
+            r["drivers_launches"] = drv["launches"][r["name"]]
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

@@ -423,10 +423,13 @@ def attention_decode(params, cfg: ModelConfig, x, cache, window: int = -1):
     return y, {"k": ck, "v": cv, "index": idx + 1}
 
 
-def _decode_mask(cfg: ModelConfig, idx, slot, C: int, window: int, device):
+def _decode_mask(cfg: ModelConfig, idx, slot, C: int, window: int, device, start: int = 0,
+                 n: Optional[int] = None):
     """The valid slots of a (ring) KV cache of C slots: those already
-    written; ring order does not matter to the softmax."""
-    t = torch.arange(C, device=device)
+    written; ring order does not matter to the softmax. ``start`` and ``n``
+    pick the slots [start, start + n) of the C (a card's shard of a cache
+    split on its sequence), each judged by its global position."""
+    t = start + torch.arange(C if n is None else n, device=device)
     valid = t < torch.clamp(idx + 1, max=C)
     w = cfg.sliding_window if window == -1 else window
     if w and 0 < w < C:
@@ -437,42 +440,72 @@ def _decode_mask(cfg: ModelConfig, idx, slot, C: int, window: int, device):
 
 def _attention_decode_spmd(params, cfg: ModelConfig, x, q, k, v, cache, slot, window: int):
     """``attention_decode`` on a DTensor KV cache, each card on its shard of
-    it: the new K/V are written into the card's shard, the scores of a
-    cache split on hd are partial sums (all-reduced, far smaller than the
-    cache), a split of the batch or the kv heads stays local. A cache split
-    on its sequence (``cache_spec(seq_shard=True)``) is not supported."""
+    it, as GSPMD partitions the JAX package's decode:
+
+    - a split of the batch or the kv heads stays local;
+    - a split of hd leaves partial scores, all-reduced (far smaller than
+      the cache);
+    - a split of the sequence (the ring of a batch-1 decode, or
+      ``cache_spec(seq_shard=True)``) gives each card its own slots: the new
+      K/V land only in the shard that holds slot ``idx % C`` (a masked
+      write, no host sync), each card masks its scores by their global
+      positions, the softmax's max and sum are all-reduced (MAX, then SUM)
+      across the cards of the split, and the cards' pending sums of
+      probs · V are all-reduced."""
     ck, cv, idx = cache["k"], cache["v"], cache["index"]
     mesh = ck.device_mesh
-    B, C, hd = x.shape[0], ck.shape[1], cfg.hd
-    if any(p.is_shard() and p.dim == 1 and mesh.size(i) > 1 for i, p in enumerate(ck.placements)):
-        raise NotImplementedError("SPMD decode of a sequence-split KV cache")
-    for c, new in ((ck, k), (cv, v)):
-        new = spmd.redistribute(spmd.replicate_partial(new.to(c.dtype)), c.placements)
-        spmd.local(lambda cl, nl, sl: cl.index_copy_(1, sl.reshape(1), nl), (c, new, slot), c.placements, mesh)
-    # q placed like the cache: batch (0), kv heads (2: q's heads split alike), hd (3)
-    q = spmd.redistribute(spmd.replicate_partial(q), ck.placements)
+    C, hd = ck.shape[1], cfg.hd
     kinds = {i: p.dim for i, p in enumerate(ck.placements) if p.is_shard() and mesh.size(i) > 1}
-    score_pl = [spmd._shard({0: 0, 2: 1}[kinds[i]]) if kinds.get(i) in (0, 2)
+    # the token's q, k and v placed like the cache, whole along the sequence
+    tok_pl = [spmd._replicate() if kinds.get(i) == 1 else p for i, p in enumerate(ck.placements)]
+    start, n = spmd.shard_offset(ck, 1), ck.to_local().shape[1]  # this card's slots
+
+    def write(cl, nl, sl):
+        at = sl - start
+        mine = (at >= 0) & (at < n)
+        at = torch.where(mine, at, torch.zeros_like(at)).reshape(1)
+        return cl.index_copy_(1, at, torch.where(mine, nl, cl.index_select(1, at)))
+
+    for c, new in ((ck, k), (cv, v)):
+        new = spmd.redistribute(spmd.replicate_partial(new.to(c.dtype)), tok_pl)
+        spmd.local(write, (c, new, slot), c.placements, mesh)
+    q = spmd.redistribute(spmd.replicate_partial(q), tok_pl)
+    # scores (b, n, 1, g, t): batch, kv heads and slots split like the cache;
+    # a split hd leaves them partial
+    score_pl = [spmd._shard({0: 0, 1: 4, 2: 1}[kinds[i]]) if kinds.get(i) in (0, 1, 2)
                 else (spmd._partial() if kinds.get(i) == 3 else spmd._replicate()) for i in range(mesh.ndim)]
 
     def scores_of(ql, kl):
         b, _, h, d = ql.shape
-        n = kl.shape[2]
-        return torch.einsum("bsngk,btnk->bnsgt", ql.reshape(b, 1, n, h // n, d), kl).float()
+        m = kl.shape[2]
+        return torch.einsum("bsngk,btnk->bnsgt", ql.reshape(b, 1, m, h // m, d), kl).float()
 
-    scores = spmd.replicate_partial(spmd.local(scores_of, (q, ck), score_pl, mesh)) / math.sqrt(hd)
-    valid = _decode_mask(cfg, idx, slot, C, window, x.device)
-    scores = scores.masked_fill(~valid[None, None, None, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    probs = spmd.redistribute(probs, [p if p.is_shard() else spmd._replicate() for p in score_pl])
-    out_pl = [spmd._shard({0: 0, 2: 2, 3: 3}[kinds[i]]) if i in kinds else spmd._replicate()
-              for i in range(mesh.ndim)]
+    scores = spmd.replicate_partial(spmd.local(scores_of, (q, ck), score_pl, mesh))
+    # the softmax's max and sum: pending over a split of the slots
+    pl = list(scores.placements)
+    max_pl = [spmd._partial("max") if kinds.get(i) == 1 else p for i, p in enumerate(pl)]
+    sum_pl = [spmd._partial() if kinds.get(i) == 1 else p for i, p in enumerate(pl)]
 
-    def values_of(pl, vl):
-        o = torch.einsum("bnsgt,btnk->bsngk", pl, vl)
+    def masked_max(s, i, sl):
+        ok = _decode_mask(cfg, i, sl, C, window, s.device, start, n)
+        s = (s / math.sqrt(hd)).masked_fill(~ok[None, None, None, None, :], -1e30)
+        return s, s.amax(-1, keepdim=True)
+
+    def exp_sum(s, m):
+        e = torch.exp(s - m)
+        return e, e.sum(-1, keepdim=True)
+
+    scores, top = spmd.local(masked_max, (scores, idx, slot), [pl, max_pl], mesh)
+    e, total = spmd.local(exp_sum, (scores, spmd.replicate_partial(top)), [pl, sum_pl], mesh)
+    total = spmd.replicate_partial(total)
+    out_pl = [spmd._shard({0: 0, 2: 2, 3: 3}[kinds[i]]) if kinds.get(i) in (0, 2, 3)
+              else (spmd._partial() if kinds.get(i) == 1 else spmd._replicate()) for i in range(mesh.ndim)]
+
+    def values_of(el, tl, vl):
+        o = torch.einsum("bnsgt,btnk->bsngk", (el / tl).to(x.dtype), vl)
         return o.reshape(o.shape[0], 1, -1, o.shape[-1])
 
-    out = spmd.local(values_of, (probs, cv), out_pl, mesh)  # (B, 1, H, hd)
+    out = spmd.replicate_partial(spmd.local(values_of, (e, total, cv), out_pl, mesh))  # (B, 1, H, hd)
     # heads, not hd, split for wo (an all-to-all of one token's outputs)
     out = spmd.redistribute(out, [spmd._shard(2) if p.is_shard() and p.dim == 3 else p for p in out.placements])
     return attention_out(params, out), {"k": ck, "v": cv, "index": idx + 1}

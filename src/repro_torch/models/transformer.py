@@ -82,10 +82,14 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
 
 
 def _lookup(emb, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    # DTensor's own embedding of a vocab-split table masks the tokens with a
+    # data-dependent check that fake tensors cannot run: ``spmd.vocab_lookup``
     if cfg.n_codebooks:
-        x = F.embedding(tokens[:, 0], emb[0])
-        for c in range(1, cfg.n_codebooks):
-            x = x + F.embedding(tokens[:, c], emb[c])
+        x = None
+        for c in range(cfg.n_codebooks):
+            e = (spmd.vocab_lookup(emb[c], tokens[:, c]) if spmd.is_dtensor(emb)
+                 else F.embedding(tokens[:, c], emb[c]))
+            x = e if x is None else x + e
         return x
     if spmd.is_dtensor(emb) and emb.dim() == 2:
         return spmd.vocab_lookup(emb, tokens)
@@ -100,7 +104,11 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """(..., D) -> (..., padded vocab); the tied head reads the embedding.
     Audio: (B, S, D) -> (B, S, nc, V), one head per codebook."""
     if cfg.n_codebooks:
-        return torch.einsum("bsd,cdv->bscv", x, params["heads"])
+        heads = params["heads"]
+        if spmd.any_dtensor(x, heads):  # each head partitioned as a dot
+            return torch.stack([spmd.replicate_partial(_dot(x, heads[c], 1, False))
+                                for c in range(cfg.n_codebooks)], dim=2)
+        return torch.einsum("bsd,cdv->bscv", x, heads)
     stacked = params["embed"].dim() == 3
     if cfg.tie_embeddings:
         head = params["embed"].transpose(-1, -2)

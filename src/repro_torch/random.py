@@ -329,6 +329,26 @@ def truncated_normal(k, lower: float, upper: float, shape, *, scale: Optional[fl
     return _draw(k, shape, fn, dtype, shard, out)
 
 
+def randint(k, shape, minval: int, maxval: int) -> torch.Tensor:
+    """int32 integers in [minval, maxval): ``jax.random.randint`` with its
+    default dtype, draw for draw. Two 32-bit draws per element (of the
+    key's two halves, ``split``) are combined mod the span as jax combines
+    them: ``((hi % span) * mult + lo % span) % span`` with ``mult =
+    (2**16 % span)**2 % span``, in uint32 arithmetic (every product and sum
+    wraps at 2**32, the multiplier's square too). ``maxval <= minval``
+    gives ``minval``."""
+    lo_i, hi_i = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    minval, maxval = int(minval), int(maxval)
+    if not (lo_i <= minval <= hi_i and lo_i <= maxval <= hi_i):
+        raise ValueError(f"randint bounds [{minval}, {maxval}) lie outside int32")
+    k1, k2 = split(k)
+    hi, lo = bits(k1, shape), bits(k2, shape)
+    span = (maxval - minval) & _M if maxval > minval else 1
+    mult = ((2**16 % span) ** 2 & _M) % span
+    off = ((((hi % span) * mult) & _M) + lo % span) & _M
+    return (minval + off % span).to(torch.int32)
+
+
 def gumbel(k, shape) -> torch.Tensor:
     tiny = float(np.finfo(np.float32).tiny)
     return -torch.log(-torch.log(uniform(k, shape, tiny, 1.0)))

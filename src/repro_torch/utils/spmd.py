@@ -17,7 +17,8 @@ on plain tensors, so a one-device run keeps its bits.
   replicated input meets outputs that differ across cards.
 - ``replicate_partial``, ``keep_shards``, ``weight``: a pending sum
   all-reduced; a tensor kept split only on given dims; a weight's data-axis
-  (``fsdp``) shards gathered before use.
+  (``fsdp``) shards gathered before use. ``place``: a card's shard of a
+  tensor every card holds whole.
 - ``align_heads``, ``vocab_lookup``, ``logsumexp_and_pick``: GQA heads, a
   vocab-split embedding's lookup and cross-entropy, each card on its
   shard.
@@ -65,10 +66,10 @@ def _shard(d: int):
     return Shard(d)
 
 
-def _partial():
+def _partial(op: str = "sum"):
     from torch.distributed.tensor import Partial
 
-    return Partial()
+    return Partial(op)
 
 
 def shard_dim(p) -> Optional[int]:
@@ -146,6 +147,17 @@ def from_local(t: torch.Tensor, mesh, placements: Sequence):
     for d in range(len(shape) - 2, -1, -1):
         stride[d] = stride[d + 1] * shape[d + 1]
     return _dtensor().from_local(t, mesh, list(placements), run_check=False, shape=shape, stride=tuple(stride))
+
+
+def place(full: torch.Tensor, mesh, placements: Sequence):
+    """This card's shard of ``full`` (a tensor every card holds whole) as a
+    DTensor on ``mesh``: nested chunks in mesh order, as DTensor nests
+    them, copied so that the DTensor owns its storage."""
+    local = full
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            local = local.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(i)]
+    return from_local(local.clone(), mesh, placements)
 
 
 def _to_local(x):

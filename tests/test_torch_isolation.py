@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points run on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package (its
+package, ``chip_smoke.py`` and the ``examples/port_*.py`` drivers), and its
+entry points run on CUDA unless the caller asks for the CPU."""
 import os
 import re
 import subprocess
@@ -28,6 +29,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.launch.specs, repro_torch.launch.dryrun, repro_torch.utils.hlo, repro_torch.utils.tree\n"
         "import repro_torch.launch.profile, repro_torch.utils.spmd\n"
         "import repro_torch.scale, repro_torch.data.plane, repro_torch.fl.baselines\n"
+        f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"
+        "import port_quickstart, port_robust_fl, port_serve_cohorts, port_train_lm_federated\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -39,7 +42,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 
 def test_no_source_file_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("port_*.py"))
+    assert [f.name for f in examples] == ["port_quickstart.py", "port_robust_fl.py", "port_serve_cohorts.py",
+                                          "port_train_lm_federated.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files if FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -24,6 +24,19 @@ def _jkey_words(k):
     return np.asarray(jax.random.key_data(k)).astype(np.int64)
 
 
+@pytest.mark.parametrize("lo, hi", [(0, 1024), (0, 7), (-5, 70_001), (3, 3), (9, 2), (-2**31, 2**31 - 1),
+                                     (0, 2**31 - 1)])
+def test_randint_bit_equal(lo, hi):
+    """Spans below and past 2**16 (the uint32 product wraps), one that is
+    not a power of 2, an empty range (minval), and int32's whole range."""
+    for seed in (0, 42):
+        jk, tk = jax.random.fold_in(jax.random.key(seed), 3), trnd.fold_in(trnd.key(seed), 3)
+        want = np.asarray(jax.random.randint(jk, (8, 33), lo, hi))
+        got = trnd.randint(tk, (8, 33), lo, hi)
+        assert got.dtype == torch.int32 and want.dtype == np.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_key_split_fold_in_bit_equal(seed):
     jk = jax.random.key(seed)
