@@ -19,6 +19,7 @@
     python3 chip_smoke.py --maverick      # build + phase 18 alone, its step at
         # the full 48 layers
     python3 chip_smoke.py --drivers       # build + phase 19 alone
+    python3 chip_smoke.py --options       # build + phase 20 alone (with a warm-up round)
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -187,6 +188,20 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      launches counted from 0 (quickstart and robust_fl launch both round
      kernels, train_lm_federated the segment kernel, serve_cohorts none)
      and its last lines printed.
+ 20. the reference's last options: (a) a ``tp`` CohortBank of granite-3-2b
+     at full width (depth 1 of 40: a 0.646 GB f32 slot), capacity 8, on
+     ``make_cohort_mesh(4, model=2, devices=[cuda:0] * 8)`` beside a ``dp``
+     bank: 7 spawns, every slot's params and Yogi m, v bit-equal, the
+     bytes a model position holds, and the params re-packed (4 x 2) ->
+     (2 x 2) -> (1 x 1) into each target's pieces, bit-equal to the dp
+     bank's re-pack; (b) phase 10b's granite-3-2b round at full width,
+     depth 8 of 40, once under ``remat_policy`` "full" and once under
+     "outputs" from the same state: losses equal as printed, the params'
+     largest gap, s/round, the peak against the dry run's plan on (1, 1)
+     (plan / measured >= 0.9), every segment call held bit-equal to the
+     plain version on a CPU copy, the launches counted from 0; (c) phase
+     4's run served 64 queries one at a time by ``ServingPlane(max_batch=1,
+     bucket_min=1)`` and at once by the batched plane: the same answers.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -3439,12 +3454,13 @@ def spmd_profiles(torch) -> dict:
     return out
 
 
-def checked_segments(torch, ops, ref, log: list, tag: str, limit=None):
+def checked_segments(torch, ops, ref, log: list, tag: str, limit=None, seconds: list = None):
     """Wrap ``ops.segment_aggregate``: each call on plain CUDA tensors (a
     card's local shards), or the first ``limit`` of them, is held bit-equal
     to the plain version on a CPU copy (NaNs, which a fake group's unfilled
-    buffers may feed in, must sit at the same places) and logged. Returns
-    the undo."""
+    buffers may feed in, must sit at the same places) and logged. With
+    ``seconds``, each check's host seconds are appended to it (the card's
+    queued work is waited for first and not counted). Returns the undo."""
     from repro_torch.utils import spmd
 
     orig = ops.segment_aggregate
@@ -3453,13 +3469,20 @@ def checked_segments(torch, ops, ref, log: list, tag: str, limit=None):
         out = orig(data, ids, k, weights)
         if spmd.any_dtensor(data, ids, weights) or data.device.type != "cuda" or len(log) == limit:
             return out
+        if seconds is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
         want = ref.segment_aggregate(data.cpu(), ids.cpu(), k, None if weights is None else weights.cpu())
         got = out.cpu()
-        nan = torch.isnan(want)
-        if not (torch.equal(nan, torch.isnan(got))
-                and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
-            raise AssertionError(f"{tag}: a segment call {tuple(data.shape)} K {k} is not the plain version's bits")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):  # equal bits, NaNs included
+            nan = torch.isnan(want)
+            if not (torch.equal(nan, torch.isnan(got))
+                    and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
+                raise AssertionError(f"{tag}: a segment call {tuple(data.shape)} K {k} is not the plain "
+                                     "version's bits")
         log.append((tuple(data.shape), int(k), data.dtype))
+        if seconds is not None:
+            seconds.append(time.perf_counter() - t0)
         return out
 
     ops.segment_aggregate = seg
@@ -4271,6 +4294,265 @@ def drivers_only(torch) -> int:
     return 0
 
 
+# ------------------------------------------ phase 20: the reference's last options
+OPT_LAYERS = 8  # 20b's depth: full width, 8 of granite's 40 layers (the plan probes 1, 2 and 3)
+BANK_MESH = (4, 2)  # 20a: cohort shards x model positions, all on card 0
+BANK_CAP = 8
+BANK_SPAWNS = [("0", ["1", "2"]), ("1", ["3", "4"]), ("2", ["5"]), ("4", ["6", "7"])]  # 7 spawns
+SERVE_QUERIES = 64  # 20c
+
+
+def tree_gap(torch, a, b) -> float:
+    """The largest |a - b| over two trees' leaves."""
+    from repro_torch.utils.tree import leaves
+
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(leaves(a), leaves(b)))
+
+
+def tree_equal(torch, a, b) -> bool:
+    from repro_torch.utils.tree import leaves
+
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def bank_options(torch, card) -> dict:
+    """20a: a ``tp`` bank of granite-3-2b at full width (depth 1 of 40),
+    capacity 8, on ``make_cohort_mesh(4, model=2, devices=[cuda:0] * 8)``,
+    beside a ``dp`` bank on the same mesh: 7 spawns in each, every slot's
+    params and Yogi state bit-equal; the bytes a model position holds; the
+    tp bank's params re-packed (4 x 2) -> (2 x 2) -> (1 x 1) into each
+    target's pieces, bit-equal to the dp bank's own re-pack."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.fl.pipeline import CohortBank
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_cohort_mesh
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    model = build_model(get_config(GRANITE).replace(n_layers=1))
+    params = model.init(rnd.key(0), device="cuda")
+    opt = {"m": tree_map(torch.neg, params), "v": tree_map(torch.square, params)}
+    slot_gb = sum(a.numel() * a.element_size() for a in leaves(params)) / 1e9
+    n_leaves = len(leaves(params))
+    n, m = BANK_MESH
+    mesh = make_cohort_mesh(n, model=m, devices=[torch.device("cuda", 0)] * (n * m))
+    tp = CohortBank(params, opt, BANK_CAP, mesh=mesh, policy="tp")
+    dp = CohortBank(params, opt, BANK_CAP, mesh=mesh)
+    del params, opt
+    if not tp.sharded or tp.group_params is not None or dp.sharded:
+        raise AssertionError("20a: the tp bank does not hold pieces, or the dp bank does")
+    for parent, children in BANK_SPAWNS:
+        if tp.spawn_children(parent, children) != dp.spawn_children(parent, children):
+            raise AssertionError(f"20a: the banks put {children} in different slots")
+    torch.cuda.synchronize()
+    for cid in dp.slot_of:
+        if not (tree_equal(torch, tp.params_of(cid), dp.params_of(cid))
+                and tree_equal(torch, tp.opt_state_of(cid), dp.opt_state_of(cid))):
+            raise AssertionError(f"20a: cohort {cid}'s slot differs between the tp and dp banks")
+    pos_gb = [sum(p[k].numel() * p[k].element_size() for a in leaves(tp.placed_params) for p in a.parts)
+              / 1e9 for k in range(m)]
+    dp_gb = sum(a.numel() * a.element_size() for g in dp.group_params for a in leaves(g)) / 1e9
+    split = sum(a.sharding.split_dim is not None for a in leaves(tp.placed_params))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # re-packs of the params: tp pieces into each target's pieces vs the dp bank's whole re-pack
+    A, repacks = tp._next, []
+    tree, want, old = tp.placed_params, dp.params, n
+    for tn, tm in ((2, 2), (1, 1)):
+        target = make_cohort_mesh(tn, model=tm, devices=[torch.device("cuda", 0)] * (tn * tm))
+        sh = shd.bank_shardings(tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype, device="meta"), tree),
+                                target, "tp")
+        tree = shd.repack_stacked(tree, BANK_CAP, A, old, tn, out_shardings=sh)
+        want = shd.repack_stacked(want, BANK_CAP, A, old, tn)
+        placed = all(isinstance(a, shd.Placed) and len(a.parts[0]) == tm for a in leaves(tree))
+        same = tree_equal(torch, tree_map(lambda a: a.whole(), tree), want)
+        repacks.append((f"{tn}x{tm}", placed, same))
+        if not (placed and same):
+            raise AssertionError(f"20a: the re-pack to {tn} x {tm} is not in the target's pieces or not bit-equal")
+        old = tn
+    del tp, dp, tree, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"[options] 20a {GRANITE} full width, depth 1 of 40: a slot {slot_gb:.3f} GB f32; capacity "
+          f"{BANK_CAP} on make_cohort_mesh({n}, model={m}, devices=[cuda:0] x {n * m}); 7 spawns "
+          f"{BANK_SPAWNS}: every slot's params and Yogi m, v bit-equal between the tp and dp banks; tp "
+          f"params a model position {[round(g, 4) for g in pos_gb]} GB ({split} of {n_leaves} leaves "
+          f"split) vs the dp bank's {dp_gb:.4f} GB a shard group; re-packs {repacks}; peak {peak_gb:.2f} GB; "
+          f"{secs:.1f} s ({card})", flush=True)
+    return dict(slot_gb=slot_gb, pos_gb=pos_gb, dp_gb=dp_gb, split=split, repacks=repacks, peak_gb=peak_gb,
+                seconds=secs)
+
+
+def lm_round(torch, ops, ref, cfg, params0, toks, seg_log: list) -> dict:
+    """One federated round of ``cfg`` (phase 10b's step and corpus) from a
+    copy of ``params0``, its segment calls held bit-equal to the plain
+    version (``checked_segments``): the loss, counts, params, peak (above
+    what lived before the round's state was made), wall and the wall less
+    the checks' host time, and the segment launches counted from 0."""
+    from repro_torch.launch import steps
+    from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import leaves, tree_map
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = tree_map(torch.clone, params0)
+    opt = steps.yogi_init(params)
+    clust = steps.clustering_init(2, 128, device="cuda")
+    step = steps.make_train_step(build_model(cfg), steps.StepConfig(local_steps=2, d_sketch=128))
+    check_s = []
+    undo = checked_segments(torch, ops, ref, seg_log, "20b", seconds=check_s)
+    sa.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        params, opt, clust, met = step(params, opt, clust, {"tokens": toks})
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    loss = float(met["loss"])
+    if not math.isfinite(loss) or not all(bool(torch.isfinite(a).all()) for a in leaves(params)):
+        raise AssertionError(f"20b {cfg.remat_policy}: non-finite loss or params")
+    return dict(loss=loss, counts=met["cluster_counts"].tolist(), params=params, wall=wall,
+                secs=wall - sum(check_s), measured_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                launches=sa.launches)
+
+
+def remat_rounds(torch, card, ops, ref, warm_up: bool) -> dict:
+    """20b: granite-3-2b's LM round (phase 10b's path) at full width, depth
+    8 of 40, one round under each remat policy from the same state, after
+    a warm-up round at depth 1 where asked (``--options``: the process's
+    first GEMMs of these shapes and first sketch draws; the whole script
+    reaches phase 20 warm): the losses, the largest gap between the two
+    rounds' params, s/round (the round's wall less its segment checks' host
+    time, each check starting after the card's queued work), the peak
+    against the dry run's plan on a (1, 1) mesh (gate 0.9), and every
+    segment-kernel call of the three rounds held bit-equal to the plain
+    version on a CPU copy, the launches counted from 0."""
+    import torch.distributed as dist
+
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.specs import SDS
+    from repro_torch.models import build_model
+
+    sc = steps.StepConfig(local_steps=2, d_sketch=128)
+    base_cfg = get_config(GRANITE).replace(n_layers=OPT_LAYERS)
+    toks = torch.from_numpy(synth_corpus(LM_C, LM_M, LM_S, base_cfg.vocab)[0]).cuda()
+    spec = {"tokens": SDS((LM_C, LM_M, LM_S), torch.int32)}
+    seg_log, warm, launches = [], None, 0
+    if warm_up:
+        warm_cfg = base_cfg.replace(n_layers=1)
+        warm = lm_round(torch, ops, ref, warm_cfg, build_model(warm_cfg).init(rnd.key(0), device="cuda"), toks,
+                        seg_log)
+        launches = warm.pop("launches")
+        del warm["params"]
+    params0 = build_model(base_cfg).init(rnd.key(0), device="cuda")
+    out = {}
+    for policy in ("full", "outputs"):
+        out[policy] = lm_round(torch, ops, ref, base_cfg.replace(remat_policy=policy), params0, toks, seg_log)
+        launches += out[policy].pop("launches")
+    del params0
+    gap = tree_gap(torch, out["full"].pop("params"), out["outputs"].pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lmesh.init_fake_world(1)
+    try:
+        mesh = lmesh.make_mesh((1, 1), ("data", "model"), "cuda")
+        for policy, o in out.items():
+            t0 = time.perf_counter()
+            plan = dryrun.plan_step(base_cfg.replace(remat_policy=policy), "train", spec, mesh, "tp", sc,
+                                    n_clients=LM_C)
+            o.update(plan_gb=plan["plan_bytes"] / 1e9, step_peak_gb=plan["step_peak_bytes"] / 1e9,
+                     plan_s=time.perf_counter() - t0, probe_peaks=plan["probes"]["step_peak_bytes"])
+            o["ratio"] = o["plan_gb"] / o["measured_gb"]
+    finally:
+        dist.destroy_process_group()
+    for policy, o in out.items():
+        print(f"[options] 20b {GRANITE} full width, {OPT_LAYERS} layers, remat {policy}: loss {o['loss']!r}, "
+              f"counts {o['counts']}, {o['secs']:.3f} s/round ({o['wall']:.3f} s with the segment checks' "
+              f"host time), peak {o['measured_gb']:.3f} GB vs plan "
+              f"{o['plan_gb']:.3f} GB (step peak {o['step_peak_gb']:.3f}; probes "
+              f"{[round(b / 1e9, 3) for b in o['probe_peaks']]} GB at 1, 2, 3 layers; planned in "
+              f"{o['plan_s']:.1f} s): plan / measured {o['ratio']:.4f} ({card})", flush=True)
+    print(f"[options] 20b losses equal as printed: {out['full']['loss'] == out['outputs']['loss']}; the "
+          f"params' largest gap between the policies {gap:.3e}; "
+          + (f"the depth-1 warm-up round {warm['wall']:.3f} s ({warm['secs']:.3f} s without its checks); "
+             if warm else "") + f"{launches} segment launches in the phase's rounds, {len(seg_log)} calls each "
+          "bit-equal to the plain version on a CPU copy", flush=True)
+    if repr(out["full"]["loss"]) != repr(out["outputs"]["loss"]):
+        raise AssertionError(f"20b: the losses differ: {out['full']['loss']!r} vs {out['outputs']['loss']!r}")
+    if launches <= 0 or launches != len(seg_log):
+        raise AssertionError(f"20b: {launches} segment launches, {len(seg_log)} checked calls")
+    for policy, o in out.items():
+        if o["ratio"] < PLAN_GATE:
+            raise AssertionError(f"20b {policy}: the plan {o['plan_gb']:.3f} GB is more than 10% below the "
+                                 f"measured peak {o['measured_gb']:.3f} GB")
+    return dict(policies=out, gap=gap, warm_up=warm, launches=launches, checked=len(seg_log))
+
+
+def bucket_serving(torch, np) -> dict:
+    """20c: on phase 4's run, ``ServingPlane(bucket_min=1, max_batch=1)``
+    answers 64 queries one at a time (64 inferences of width 1) the same as
+    the batched plane (one inference, width 64)."""
+    from repro_torch.serve import ServingPlane
+
+    eng, _, _ = run_main(torch, ROUNDS)
+    ids = np.arange(eng.data.n_clients, dtype=np.int64)
+    hot = ids[np.asarray(eng.fp_seen[ids], bool)]
+    cold = np.setdiff1d(ids, hot)
+    queries = np.concatenate([hot[:SERVE_QUERIES // 2], cold[:SERVE_QUERIES // 2]])
+    one, batched = ServingPlane(eng, max_batch=1, bucket_min=1), ServingPlane(eng)
+    singles = np.concatenate([one.serve_batch(queries[i:i + 1]) for i in range(queries.size)])
+    together = batched.serve_batch(queries)
+    slots = sorted(set(batched.route_slots(queries).tolist()))
+    print(f"[options] 20c {queries.size} queries ({hot[:SERVE_QUERIES // 2].size} hot) over slots {slots}: "
+          f"bucket_min 1, max_batch 1: {one.infer_dispatches} inferences; batched (bucket_min 8): "
+          f"{batched.infer_dispatches}; answers equal {bool(np.array_equal(singles, together))}", flush=True)
+    if one.infer_dispatches != queries.size or batched.infer_dispatches != 1:
+        raise AssertionError("20c: the planes made the wrong number of inferences")
+    if not np.array_equal(singles, together):
+        raise AssertionError(f"20c: the per-query plane answered {int((singles != together).sum())} queries "
+                             "differently")
+    return dict(queries=int(queries.size), slots=slots)
+
+
+def options_phase(torch, np, ops, ref, card, warm_up: bool = False) -> dict:
+    """Phase 20: 20a the tp bank on a model axis, 20b the remat policies on
+    granite's round, 20c the per-query plane."""
+    t0 = time.perf_counter()
+    bank = bank_options(torch, card)
+    remat = remat_rounds(torch, card, ops, ref, warm_up)
+    serve = bucket_serving(torch, np)
+    secs = time.perf_counter() - t0
+    print(f"[options] phase 20 took {secs:.1f} s", flush=True)
+    return dict(bank=bank, remat=remat, serve=serve, seconds=secs,
+                launches={"cosine_similarity": 0, "segment_aggregate": remat["launches"]})
+
+
+def options_only(torch) -> int:
+    """``--options``: build, then phase 20 alone."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops, ref
+
+    card = smi()
+    print(card)
+    print(f"[build] {build.build()}")
+    out = options_phase(torch, np, ops, ref, card, warm_up=True)
+    print(json.dumps({"options": {"bank": out["bank"], "remat": out["remat"], "seconds": out["seconds"]}}))
+    print(card)
+    return 0
+
+
 def row_json(sig, t):
     return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
@@ -4354,6 +4636,8 @@ def main(argv) -> int:
         return maverick_only(torch)
     if "--drivers" in argv:
         return drivers_only(torch)
+    if "--options" in argv:
+        return options_only(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -4602,6 +4886,16 @@ def main(argv) -> int:
     for r in report:
         if r["name"] in ROUND_KERNELS:
             r["drivers_launches"] = drv["launches"][r["name"]]
+
+    # ------------------------------------------ phase 20: the reference's last options
+    gc.collect()
+    torch.cuda.empty_cache()
+    opts = options_phase(torch, np, ops, ref, card)
+    if opts["launches"]["segment_aggregate"] <= 0:
+        return fail("phase 20 never launched the segment kernel")
+    for r in report:
+        if r["name"] in ROUND_KERNELS:
+            r["options_launches"] = opts["launches"][r["name"]]
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

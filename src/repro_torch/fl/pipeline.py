@@ -78,14 +78,17 @@ from repro_torch.fl.client import local_train
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import cohort_size, make_cohort_mesh
 from repro_torch.launch.sharding import (
+    Placed,
     ShardGroup,
     bank_placement,
+    bank_shardings,
     padded_capacity,
+    place,
     row_placement,
     shard_groups,
 )
 from repro_torch.scale.store import ChunkedAffinityTable
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import leaves, tree_map
 
 
 def _next_pow2(n: int) -> int:
@@ -147,15 +150,29 @@ class CohortBank:
     copies the parent slot once to each group that receives a child: the
     only time model bytes move between devices. Without a mesh the bank is
     one group holding every slot on the params' device.
+
+    ``policy`` places a slot's leaves within its shard, as in the reference
+    (``launch/sharding.bank_spec``): ``dp`` keeps them whole; ``tp`` on a
+    mesh with a model axis (``make_cohort_mesh(n, model=m)``, m > 1) holds
+    each leaf as one piece per group and model position, on that
+    position's device (``placed_params``, ``placed_opt``: trees of
+    ``Placed``; ``group_params`` and ``group_opt`` are then None), split
+    along the dim the spec gives ``model`` or whole where it replicates.
+    Yogi's m and v follow their parameter's spec. A spawn copies each piece
+    to the same position's pieces: model bytes never cross model
+    positions. ``fsdp`` names a data axis, which a cohort mesh lacks, and
+    raises, as the reference does. The round runs on ``dp`` banks (the
+    engine passes no policy).
     """
 
-    def __init__(self, params, opt_state, capacity: int, mesh=None):
+    def __init__(self, params, opt_state, capacity: int, mesh=None, policy: str = "dp"):
         self.mesh = mesh
+        self.policy = policy
         self.n_shards = cohort_size(mesh)
         self.capacity = padded_capacity(capacity, self.n_shards)
         self.slots_per_shard = self.capacity // self.n_shards
         # the device of the assembled (capacity, ...) view: the params' own
-        self.home = next(iter(params.values())).device
+        self.home = leaves(params)[0].device
         self.groups = [ShardGroup(self.home, (0,))] if mesh is None else shard_groups(mesh)
         self.group_slots = bank_placement(self.groups, self.slots_per_shard)
         self.group_of = np.zeros(self.capacity, np.int64)
@@ -163,16 +180,37 @@ class CohortBank:
         for g, slots in enumerate(self.group_slots):
             self.group_of[slots] = g
             self.local_of[slots] = np.arange(slots.size)
+        self.sharded = mesh is not None and policy != "dp" and mesh.model > 1
+        self.placed_params = self.placed_opt = None
+        if mesh is not None and policy != "dp":
+            cap = self.capacity
 
-        def stack(a, g):
-            dev = self.groups[g].device
-            out = torch.zeros((self.group_slots[g].size,) + tuple(a.shape), dtype=a.dtype, device=dev)
-            if self.group_of[0] == g:
-                out[int(self.local_of[0])] = a.to(dev)
-            return out
+            def shapes(tree):
+                return tree_map(lambda a: torch.empty((cap,) + tuple(a.shape), dtype=a.dtype, device="meta"),
+                                tree)
 
-        self.group_params = [tree_map(lambda a: stack(a, g), params) for g in range(len(self.groups))]
-        self.group_opt = [tree_map(lambda a: stack(a, g), opt_state) for g in range(len(self.groups))]
+            # raises for an axis the mesh lacks (fsdp's data axis)
+            self._params_sh = bank_shardings(shapes(params), mesh, policy)
+            self._opt_sh = bank_shardings(shapes(opt_state), mesh, policy)
+        if self.sharded:
+            def stack0(a, sh):  # a leaf's (capacity, ...) stack, slot 0 = a, in its pieces
+                out = torch.zeros((cap,) + tuple(a.shape), dtype=a.dtype, device=a.device)
+                out[0] = a
+                return place(out, sh)
+
+            self.group_params = self.group_opt = None
+            self.placed_params = tree_map(stack0, params, self._params_sh)
+            self.placed_opt = tree_map(stack0, opt_state, self._opt_sh)
+        else:
+            def stack(a, g):
+                dev = self.groups[g].device
+                out = torch.zeros((self.group_slots[g].size,) + tuple(a.shape), dtype=a.dtype, device=dev)
+                if self.group_of[0] == g:
+                    out[int(self.local_of[0])] = a.to(dev)
+                return out
+
+            self.group_params = [tree_map(lambda a: stack(a, g), params) for g in range(len(self.groups))]
+            self.group_opt = [tree_map(lambda a: stack(a, g), opt_state) for g in range(len(self.groups))]
         self.slot_of: Dict[str, int] = {"0": 0}
         self.id_of: Dict[int, str] = {0: "0"}
         self.clock = np.zeros(self.capacity, np.float64)
@@ -194,6 +232,7 @@ class CohortBank:
         return tree_map(lambda *blocks: torch.cat(blocks), *parts)
 
     def _split(self, tree) -> list:
+        tree = tree_map(lambda a: a.whole(self.home) if isinstance(a, Placed) else a, tree)
         if len(self.groups) == 1:
             return [tree]
         return [
@@ -201,21 +240,46 @@ class CohortBank:
             for gr, slots in zip(self.groups, self.group_slots)
         ]
 
+    def _placed(self, tree, shardings):
+        """A tree of whole (capacity, ...) tensors in this bank's pieces; a
+        leaf already in them (``scatter_allocations`` with this bank's
+        ``bank_shardings``) is taken as it is."""
+        return tree_map(lambda a, sh: a if isinstance(a, Placed) and a.sharding == sh else place(
+            a.whole() if isinstance(a, Placed) else a, sh), tree, shardings)
+
     @property
     def params(self):
+        if self.sharded:
+            return tree_map(lambda a: a.whole(self.home), self.placed_params)
         return self.assemble(self.group_params)
 
     @params.setter
     def params(self, tree):
-        self.group_params = self._split(tree)
+        if self.sharded:
+            self.placed_params = self._placed(tree, self._params_sh)
+        else:
+            self.group_params = self._split(tree)
 
     @property
     def opt_state(self):
+        if self.sharded:
+            return tree_map(lambda a: a.whole(self.home), self.placed_opt)
         return self.assemble(self.group_opt)
 
     @opt_state.setter
     def opt_state(self, tree):
-        self.group_opt = self._split(tree)
+        if self.sharded:
+            self.placed_opt = self._placed(tree, self._opt_sh)
+        else:
+            self.group_opt = self._split(tree)
+
+    def shardings(self):
+        """(params, opt_state) trees of ``CohortSharding``: the placement
+        ``scatter_allocations``/``repack_stacked`` take as
+        ``out_shardings`` (None without a mesh or under ``dp``)."""
+        if self.mesh is None or self.policy == "dp":
+            return None, None
+        return self._params_sh, self._opt_sh
 
     # ------------------------------------------------------- slot algebra
     def shard_of(self, slot: int) -> int:
@@ -232,11 +296,15 @@ class CohortBank:
     def params_of(self, cohort_id: str):
         i = self.slot_of[cohort_id]
         g, row = int(self.group_of[i]), int(self.local_of[i])
-        return {k: a[row] for k, a in self.group_params[g].items()}
+        if self.sharded:
+            return tree_map(lambda a: a.slot(g, row, self.home), self.placed_params)
+        return tree_map(lambda a: a[row], self.group_params[g])
 
     def opt_state_of(self, cohort_id: str):
         i = self.slot_of[cohort_id]
         g, row = int(self.group_of[i]), int(self.local_of[i])
+        if self.sharded:
+            return tree_map(lambda a: a.slot(g, row, self.home), self.placed_opt)
         return tree_map(lambda a: a[row], self.group_opt[g])
 
     def spawn_children(self, parent: str, children: List[str]) -> List[int]:
@@ -252,17 +320,21 @@ class CohortBank:
             idx.append(slot)
             self._next += 1
         pg, prow = int(self.group_of[ps]), int(self.local_of[ps])
-        src_p = tree_map(lambda a: a[prow], self.group_params[pg])
-        src_o = tree_map(lambda a: a[prow], self.group_opt[pg])
-        new_p, new_o = list(self.group_params), list(self.group_opt)
-        for g in range(len(self.groups)):
-            rows = [int(self.local_of[s]) for s in idx if self.group_of[s] == g]
-            if not rows:
-                continue
-            # the parent's row goes to group g's device once for all its children
-            new_p[g] = tree_map(lambda a, v: _set_rows(a, rows, v.to(a.device)), new_p[g], src_p)
-            new_o[g] = tree_map(lambda a, v: _set_rows(a, rows, v.to(a.device)), new_o[g], src_o)
-        self.group_params, self.group_opt = new_p, new_o
+        dst = {}
+        for s in idx:
+            dst.setdefault(int(self.group_of[s]), []).append(int(self.local_of[s]))
+        if self.sharded:
+            self.placed_params = tree_map(lambda a: a.copy_rows(pg, prow, dst), self.placed_params)
+            self.placed_opt = tree_map(lambda a: a.copy_rows(pg, prow, dst), self.placed_opt)
+        else:
+            src_p = tree_map(lambda a: a[prow], self.group_params[pg])
+            src_o = tree_map(lambda a: a[prow], self.group_opt[pg])
+            new_p, new_o = list(self.group_params), list(self.group_opt)
+            for g, rows in dst.items():
+                # the parent's row goes to group g's device once for all its children
+                new_p[g] = tree_map(lambda a, v: _set_rows(a, rows, v.to(a.device)), new_p[g], src_p)
+                new_o[g] = tree_map(lambda a, v: _set_rows(a, rows, v.to(a.device)), new_o[g], src_o)
+            self.group_params, self.group_opt = new_p, new_o
         self.clock[idx] = self.clock[ps]
         self.rounds[idx] = self.rounds[ps]
         return idx

@@ -105,31 +105,32 @@ def plan(C: int, P: int, D: int, K: int, element_size: int, sms: int, address: i
 
 def segment_aggregate(
     data: torch.Tensor,
-    ids: torch.Tensor,
+    segment_ids: torch.Tensor,
     num_segments: int,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """data: (C, P, D) f32/bf16, ids: (C, P) int32 or int64, weights: (C, P)
-    f32 or None (= 1), all contiguous on one CUDA device -> (C, K, D)
-    float32. Ids outside [0, K) are dropped. One launch on the current
+    """data: (C, P, D) f32/bf16, segment_ids: (C, P) int32 or int64,
+    weights: (C, P) f32 or None (= 1), all contiguous on one CUDA device
+    -> (C, K, D) float32. Ids outside [0, K) are dropped. One launch on the current
     stream; the output is the only allocation."""
     global launches
     dev = data.device
-    if (dev.type != "cuda" and not is_fake(data)) or ids.device != dev or (
+    if (dev.type != "cuda" and not is_fake(data)) or segment_ids.device != dev or (
             weights is not None and weights.device != dev):
         raise ValueError("segment kernel needs CUDA tensors on one device")
     if data.dtype not in _DTYPES:
         raise TypeError(f"segment kernel takes f32 or bf16 data, got {data.dtype}")
-    if ids.dtype not in _ID_DTYPES or (weights is not None and weights.dtype != torch.float32):
-        raise TypeError(f"segment kernel takes int32/int64 ids and float32 weights, got {ids.dtype}")
-    if data.dim() != 3 or ids.shape != data.shape[:2] or (
-        weights is not None and weights.shape != ids.shape
+    if segment_ids.dtype not in _ID_DTYPES or (weights is not None and weights.dtype != torch.float32):
+        raise TypeError(f"segment kernel takes int32/int64 ids and float32 weights, got {segment_ids.dtype}")
+    if data.dim() != 3 or segment_ids.shape != data.shape[:2] or (
+        weights is not None and weights.shape != segment_ids.shape
     ):
         raise ValueError(
             f"segment kernel shapes: data (C,P,D), ids/weights (C,P); got "
-            f"{tuple(data.shape)}, {tuple(ids.shape)}"
+            f"{tuple(data.shape)}, {tuple(segment_ids.shape)}"
         )
-    if not (data.is_contiguous() and ids.is_contiguous() and (weights is None or weights.is_contiguous())):
+    if not (data.is_contiguous() and segment_ids.is_contiguous()
+            and (weights is None or weights.is_contiguous())):
         raise ValueError("segment kernel inputs must be contiguous")
     C, P, D = data.shape
     K = int(num_segments)
@@ -141,8 +142,8 @@ def segment_aggregate(
     pl = plan(C, P, D, K, data.element_size(), build.sm_count(dev.index), data.data_ptr())
     err = build.launch(
         build.function("auxo_segment_aggregate"), dev,
-        data.data_ptr(), ids.data_ptr(), None if weights is None else weights.data_ptr(),
-        out.data_ptr(), C, P, K, D, _DTYPES[data.dtype], _ID_DTYPES[ids.dtype],
+        data.data_ptr(), segment_ids.data_ptr(), None if weights is None else weights.data_ptr(),
+        out.data_ptr(), C, P, K, D, _DTYPES[data.dtype], _ID_DTYPES[segment_ids.dtype],
         pl.vec_bytes, pl.rows, pl.threads, pl.span, pl.chunk,
     )
     if err != 0:

@@ -252,12 +252,14 @@ def _extrap_peak(peaks, n_units: float) -> float:
 
 
 def plan_step(cfg, kind: str, batch: Dict[str, Any], mesh, policy: str, step_cfg: StepConfig,
-              n_clients: int = TRAIN_CLIENTS, cache_len: int = 0, seq_shard_cache: bool = False
-              ) -> Dict[str, Any]:
+              n_clients: int = TRAIN_CLIENTS, cache_len: int = 0, seq_shard_cache: bool = False,
+              probes: bool = True) -> Dict[str, Any]:
     """The per-card plan of one step of ``cfg`` (full depth) on ``mesh``:
     ``batch`` is the whole batch (ShapeDtype records); the SPMD probe runs
     the step over the mesh and counts one card. A train step under
-    ``fsdp`` is the centralized step, as in the reference's dry run."""
+    ``fsdp`` is the centralized step, as in the reference's dry run.
+    ``probes=False`` skips the small probes and their extrapolation: one
+    probe at the config's own depth gives every figure."""
     central = kind == "train" and policy == "fsdp"
     local = _local_batch(batch, mesh, seq_shard=policy == "dp")
     shapes = build_model(cfg).init_shapes()
@@ -277,18 +279,29 @@ def plan_step(cfg, kind: str, batch: Dict[str, Any], mesh, policy: str, step_cfg
     t0 = time.time()
     # FLOPs, bytes and collectives from 1 and 2 units, as the reference
     # extrapolates them; past 2 units a third probe for the step peak
-    units = (1, 2, 3) if n_units > 2 else (1, 2)
-    probes = [probe_step(_with_units(cfg, u), kind, batch, step_cfg, central, n_clients, cache_len, mesh=mesh,
-                         policy=policy, seq_shard_cache=seq_shard_cache) for u in units]
+    units = ((1, 2, 3) if n_units > 2 else (1, 2)) if probes else (n_units,)
+    counts = [probe_step(_with_units(cfg, u) if probes else cfg, kind, batch, step_cfg, central, n_clients,
+                         cache_len, mesh=mesh, policy=policy, seq_shard_cache=seq_shard_cache) for u in units]
     probe_s = time.time() - t0
-    c1, c2 = probes[:2]
-    step_peak = _extrap_peak([c.step_peak_bytes for c in probes], n_units)
-    k1, k2 = hlo.collective_bytes(c1.collectives), hlo.collective_bytes(c2.collectives)
+    if probes:
+        step_peak = _extrap_peak([c.step_peak_bytes for c in counts], n_units)
+
+        def term(f):
+            return _extrap(f(counts[0]), f(counts[1]), n_units)
+    else:  # the whole step counted once: every figure is its own
+        step_peak = counts[0].step_peak_bytes
+
+        def term(f):
+            return f(counts[0])
+
+    def coll(c):
+        return hlo.collective_bytes(c.collectives)
+
     roof = hlo.Roofline(
-        flops=_extrap(c1.flops, c2.flops, n_units),
-        bytes_accessed=_extrap(c1.bytes_accessed, c2.bytes_accessed, n_units),
-        coll_bytes=_extrap(k1["total_weighted"], k2["total_weighted"], n_units),
-        coll_by_op={k: _extrap(k1[k], k2[k], n_units) for k in k1 if k != "total_weighted"},
+        flops=term(lambda c: c.flops),
+        bytes_accessed=term(lambda c: c.bytes_accessed),
+        coll_bytes=term(lambda c: coll(c)["total_weighted"]),
+        coll_by_op={k: term(lambda c, k=k: coll(c)[k]) for k in coll(counts[0]) if k != "total_weighted"},
         peak_flops=hlo.peak_flops(cfg.dtype),
     )
     state_bytes = sum(state.values())
@@ -303,11 +316,11 @@ def plan_step(cfg, kind: str, batch: Dict[str, Any], mesh, policy: str, step_cfg
         "plan_bytes": plan,
         "fits": plan <= hlo.HBM_BYTES,
         "hbm_bytes": hlo.HBM_BYTES,
-        "probes": {"units": list(units), "n_units": n_units, "step_peak_bytes": [c.step_peak_bytes for c in probes],
-                   "flops": [c.flops for c in probes], "bytes": [c.bytes_accessed for c in probes],
-                   "coll_bytes": [hlo.collective_bytes(c.collectives)["total_weighted"] for c in probes],
-                   "n_collectives": [len(c.collectives) for c in probes], "seconds": probe_s},
-        "flops_probe": _extrap(c1.flops, c2.flops, n_units),
+        "probes": {"units": list(units), "n_units": n_units, "step_peak_bytes": [c.step_peak_bytes for c in counts],
+                   "flops": [c.flops for c in counts], "bytes": [c.bytes_accessed for c in counts],
+                   "coll_bytes": [coll(c)["total_weighted"] for c in counts],
+                   "n_collectives": [len(c.collectives) for c in counts], "seconds": probe_s},
+        "flops_probe": term(lambda c: c.flops),
         "per_device_note": "FLOPs, bytes, step peak and collectives of one card's local tensors in the SPMD probe",
         "roofline": roof.as_dict(),
     }
@@ -323,9 +336,11 @@ def parse_overrides(kvs) -> Dict[str, Any]:
 
 
 def lower_one(arch: str, shape_name: str, multi_pod: bool, policy_override=None,
-              step_cfg: StepConfig = None, extra_tag: str = "", cfg_overrides: dict = None,
-              seq_shard_cache: bool = False) -> Dict[str, Any]:
-    """Plan one (arch, shape, mesh) and return the report dict."""
+              step_cfg: StepConfig = None, extra_tag: str = "", probes: bool = True,
+              cfg_overrides: dict = None, seq_shard_cache: bool = False) -> Dict[str, Any]:
+    """Plan one (arch, shape, mesh) and return the report dict. With
+    ``probes=False`` the plan counts the whole step once instead of
+    extrapolating from small probes (``roofline_extrapolated`` false)."""
     t0 = time.time()
     cfg0 = get_config(arch)
     shape = SHAPES[shape_name]
@@ -341,7 +356,7 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool, policy_override=None,
     else:
         batch = input_specs(cfg0, shape.name)
     plan = plan_step(cfg, shape.kind, batch, mesh, policy, step_cfg, cache_len=shape.seq_len,
-                     seq_shard_cache=seq_shard_cache)
+                     seq_shard_cache=seq_shard_cache, probes=probes)
 
     model = build_model(cfg)
     n_params = model.param_count()
@@ -375,7 +390,7 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool, policy_override=None,
         "probes": plan["probes"],
         "per_device_note": plan["per_device_note"],
         "roofline": plan["roofline"],
-        "roofline_extrapolated": True,
+        "roofline_extrapolated": probes,
         "plan_s": time.time() - t0,
     }
 

@@ -13,10 +13,14 @@ Two mesh families, as in the reference:
 - ``make_cohort_mesh``: the FL engine's cohort mesh, below.
 
 A cohort mesh is an explicit, ordered tuple of ``torch.device``s, one per
-cohort shard: shard j owns the CohortBank's slot block j and the round's
-row block j (ARCHITECTURE.md §④). Several shards may name the same device:
-``devices=[torch.device("cuda:0")] * S`` places S logical shards on one
-card, and the pipeline then runs them as one stacked group there.
+mesh position: ``n_shards`` cohort shards of ``model`` positions each
+(``model`` 1 unless asked for), shard j owning positions ``j*model`` to
+``j*model + model - 1`` as in the reference. Shard j owns the CohortBank's
+slot block j and the round's row block j (ARCHITECTURE.md §④); a ``tp``
+bank splits each slot's leaves over the shard's model positions
+(``launch/sharding.bank_spec``). Several positions may name the same
+device: ``devices=[torch.device("cuda:0")] * S`` places S logical shards
+on one card, and the pipeline then runs them as one stacked group there.
 
 The mesh never changes what it was asked for: a CUDA request never lands
 on the CPU, and a request for S cards raises when fewer are present (as
@@ -33,11 +37,26 @@ from repro_torch import resolve_device
 
 
 class CohortMesh(NamedTuple):
-    devices: Tuple[torch.device, ...]  # the device of each cohort shard
+    devices: Tuple[torch.device, ...]  # the device of each mesh position, shard-major
+    model: int = 1  # model positions per cohort shard
 
     @property
     def n_shards(self) -> int:
-        return len(self.devices)
+        return len(self.devices) // self.model
+
+    def shard_devices(self, j: int) -> Tuple[torch.device, ...]:
+        """The devices of shard j's model positions, in order."""
+        return self.devices[j * self.model:(j + 1) * self.model]
+
+    # the reference's mesh axes, read by ``model_size`` and ``bank_spec``
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("cohort", "model") if self.model > 1 else ("cohort",)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        sizes = {"cohort": self.n_shards, "model": self.model}
+        return {a: sizes[a] for a in self.axis_names}
 
 
 def canonical_device(dev) -> torch.device:
@@ -53,37 +72,41 @@ def canonical_device(dev) -> torch.device:
     return dev
 
 
-def make_cohort_mesh(n_shards: int, *, devices: Optional[Sequence] = None,
+def make_cohort_mesh(n_shards: int, *, model: int = 1, devices: Optional[Sequence] = None,
                      device=None) -> CohortMesh:
-    """A mesh of ``n_shards`` cohort shards.
+    """A mesh of ``n_shards`` cohort shards of ``model`` positions each.
 
-    ``devices`` lists the shards' devices in order (the first ``n_shards``
-    are used; fewer raise). Without it the shards take distinct devices of
-    ``device``'s type: the first ``n_shards`` CUDA cards (None means CUDA),
-    or the CPU for every shard when ``device`` is the CPU.
+    ``devices`` lists the positions' devices in order (the first
+    ``n_shards * model`` are used; fewer raise). Without it the positions
+    take distinct devices of ``device``'s type: the first ``n_shards *
+    model`` CUDA cards (None means CUDA), or the CPU for every position
+    when ``device`` is the CPU.
     """
-    n_shards = int(n_shards)
-    if n_shards < 1:
-        raise ValueError(f"a cohort mesh needs at least one shard, got {n_shards}")
+    n_shards, model = int(n_shards), int(model)
+    if n_shards < 1 or model < 1:
+        raise ValueError(f"a cohort mesh needs at least one shard and one model position, got "
+                         f"{n_shards} x {model}")
+    need = n_shards * model
     if devices is not None:
         devices = list(devices)
-        if len(devices) < n_shards:
+        if len(devices) < need:
             raise ValueError(
-                f"cohort mesh needs {n_shards} devices, only {len(devices)} given"
+                f"cohort mesh needs {need} devices ({n_shards} cohort x {model} model), only "
+                f"{len(devices)} given"
             )
-        return CohortMesh(tuple(canonical_device(d) for d in devices[:n_shards]))
+        return CohortMesh(tuple(canonical_device(d) for d in devices[:need]), model)
     dev = resolve_device(device)
     if dev.type == "cpu":
-        return CohortMesh((dev,) * n_shards)
+        return CohortMesh((dev,) * need, model)
     if dev.type != "cuda":
         raise ValueError(f"no cohort mesh over {dev.type} devices")
     n = torch.cuda.device_count()
-    if n_shards > n:
+    if need > n:
         raise ValueError(
-            f"cohort mesh needs {n_shards} CUDA devices, only {n} available; pass "
-            "devices=[...] to place several shards on one card"
+            f"cohort mesh needs {need} CUDA devices ({n_shards} cohort x {model} model), only {n} "
+            "available; pass devices=[...] to place several positions on one card"
         )
-    return CohortMesh(tuple(torch.device("cuda", i) for i in range(n_shards)))
+    return CohortMesh(tuple(torch.device("cuda", i) for i in range(need)), model)
 
 
 def cohort_size(mesh) -> int:

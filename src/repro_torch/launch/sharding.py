@@ -26,13 +26,19 @@ Placement of the CohortBank over a cohort mesh and the elastic remesh's
 slot algebra (the bank half of ``repro.launch.sharding``).
 
 The reference shards the bank's slot axis over a ``cohort`` mesh axis
-(``bank_spec``/``bank_shardings``) and the round's flat row axis likewise
-(``row_sharding``). Here a placement is explicit: shard j owns the slot
-block ``[j*slots_per_shard, (j+1)*slots_per_shard)`` and the row block
-``[j*shard_width, (j+1)*shard_width)``, and the shards that sit on one
-device form a ``ShardGroup`` whose blocks are stacked in one tensor there
-(``bank_placement``/``row_placement`` give each group's slot and row ids
-in that stacked order).
+(``bank_spec``/``bank_shardings``), each slot's leaf by the parameter
+policies over a ``model`` axis, and the round's flat row axis over
+``cohort`` (``row_sharding``). Here a placement is explicit: shard j owns
+the slot block ``[j*slots_per_shard, (j+1)*slots_per_shard)`` and the row
+block ``[j*shard_width, (j+1)*shard_width)``, and the shards whose model
+positions sit on the same devices form a ``ShardGroup`` whose blocks are
+stacked in one tensor a position there (``bank_placement``/
+``row_placement`` give each group's slot and row ids in that stacked
+order). ``bank_shardings`` gives each stacked leaf a ``CohortSharding``
+(the reference's ``NamedSharding`` of its ``bank_spec``); a leaf held in
+its pieces is a ``Placed``: one local piece a group and model position,
+on that position's device, split along the dim the spec gives ``model``
+(whole where it replicates).
 
 Remesh (ARCHITECTURE.md §⑨): the bank allocates slot n -> (n % S) *
 slots_per_shard + n // S, so a cohort's slot id depends on the shard
@@ -297,22 +303,81 @@ def cache_bytes(tree: Any, global_batch: int, mesh, seq_shard: bool = False) -> 
 
 
 
+# ---------------------------------------------------------------------------
+# CohortBank placement: slot axis -> cohort shards, a slot's dims -> model
+# ---------------------------------------------------------------------------
+def bank_spec(keystr: str, shape: Tuple[int, ...], mesh, policy: str = "dp") -> Spec:
+    """Spec of one stacked CohortBank leaf: ``shape[0]`` is the slot axis
+    (``cohort``), ``shape[1:]`` one cohort model's leaf, split within the
+    slot by ``param_spec`` when the mesh has a ``model`` axis and the
+    policy is not ``dp``. Trailing ``None``s are stripped, as the
+    reference strips them."""
+    if len(shape) == 0:
+        return ()
+    inner: Tuple = ()
+    if policy != "dp" and "model" in axis_sizes(mesh) and len(shape) > 1:
+        inner = param_spec(keystr, tuple(shape[1:]), mesh, policy)
+    while inner and inner[-1] is None:
+        inner = inner[:-1]
+    return ("cohort",) + tuple(inner)
+
+
+class CohortSharding(NamedTuple):
+    """Where a stacked tensor lives on a cohort mesh (the reference's
+    ``NamedSharding(mesh, spec)``): the leading axis over the cohort
+    shards, the dim that ``spec`` gives ``model`` split over each shard's
+    model positions."""
+    mesh: Any
+    spec: Spec
+
+    @property
+    def split_dim(self) -> Optional[int]:
+        return next((d for d, e in enumerate(self.spec) if e == "model"), None)
+
+
+def _checked(mesh, spec: Spec) -> CohortSharding:
+    """A ``CohortSharding``; raises ValueError, as the reference's
+    ``NamedSharding`` does, when ``spec`` names an axis the mesh lacks."""
+    axes = axis_sizes(mesh)
+    for e in spec:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None and a not in axes:
+                raise ValueError(f"Resource axis: {a} of {spec} is not found in mesh: {tuple(axes)}")
+    return CohortSharding(mesh, tuple(spec))
+
+
+def bank_shardings(shapes: Any, mesh, policy: str = "dp"):
+    """A stacked bank tree (leaves ``(capacity, ...)``, real or meta) -> a
+    tree of ``CohortSharding``: slot axis over ``cohort``, a slot's dims by
+    ``policy``."""
+    return tree_map_with_path(
+        lambda path, leaf: _checked(mesh, bank_spec(path, tuple(leaf.shape), mesh, policy)), shapes
+    )
+
+
+def row_sharding(mesh) -> CohortSharding:
+    """The round's flat participant-row axis over ``cohort``: rows live on
+    the shard that owns their cohort's bank slot."""
+    return CohortSharding(mesh, ("cohort",))
+
+
 class ShardGroup(NamedTuple):
-    device: torch.device
-    shards: Tuple[int, ...]  # the mesh positions on this device, ascending
+    device: torch.device  # the device of the shards' first model position
+    shards: Tuple[int, ...]  # the cohort shards on these devices, ascending
 
 
 def shard_groups(mesh) -> List[ShardGroup]:
-    """The mesh's shards grouped by device, in order of each device's first
-    shard."""
-    order: List[torch.device] = []
-    by_dev = {}
-    for j, d in enumerate(mesh.devices):
-        if d not in by_dev:
-            order.append(d)
-            by_dev[d] = []
-        by_dev[d].append(j)
-    return [ShardGroup(d, tuple(by_dev[d])) for d in order]
+    """The mesh's cohort shards grouped by the devices of their model
+    positions, in order of each group's first shard."""
+    order: List[Tuple[torch.device, ...]] = []
+    by_devs = {}
+    for j in range(mesh.n_shards):
+        devs = mesh.shard_devices(j)
+        if devs not in by_devs:
+            order.append(devs)
+            by_devs[devs] = []
+        by_devs[devs].append(j)
+    return [ShardGroup(d[0], tuple(by_devs[d])) for d in order]
 
 
 def _blocks(group: ShardGroup, block: int) -> np.ndarray:
@@ -329,6 +394,106 @@ def bank_placement(groups: List[ShardGroup], slots_per_shard: int) -> List[np.nd
 def row_placement(groups: List[ShardGroup], shard_width: int) -> List[np.ndarray]:
     """Each group's flat round rows, in the order its stacked buffers hold them."""
     return [_blocks(g, shard_width) for g in groups]
+
+
+class Placed(NamedTuple):
+    """A stacked (capacity, ...) tensor held in the pieces of ``sharding``:
+    ``parts[g][m]`` holds group g's slots (``bank_placement`` order) at
+    model position m, on that position's device, split along
+    ``sharding.split_dim`` or whole where the spec replicates."""
+    sharding: CohortSharding
+    parts: Tuple[Tuple[torch.Tensor, ...], ...]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        mesh, d = self.sharding.mesh, self.sharding.split_dim
+        shape = list(self.parts[0][0].shape)
+        shape[0] = sum(p[0].shape[0] for p in self.parts)
+        if d is not None:
+            shape[d] *= mesh.model
+        return tuple(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0][0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts[0][0].device
+
+    def shard_shapes(self) -> List[Tuple[int, ...]]:
+        """The local shape at every mesh position, shard-major (the
+        reference's ``addressable_shards`` shapes)."""
+        mesh = self.sharding.mesh
+        sps = self.shape[0] // mesh.n_shards
+        groups = shard_groups(mesh)
+        return [(sps,) + tuple(p.shape[1:]) for j in range(mesh.n_shards)
+                for p in self.parts[next(g for g, gr in enumerate(groups) if j in gr.shards)]]
+
+    def slot(self, g: int, row: int, device=None) -> torch.Tensor:
+        """Slot ``row`` of group g, assembled whole on ``device`` (default:
+        its first position's)."""
+        d = self.sharding.split_dim
+        pieces = self.parts[g]
+        device = pieces[0].device if device is None else device
+        if d is None:
+            return pieces[0][row].to(device)
+        return torch.cat([p[row].to(device) for p in pieces], dim=d - 1)
+
+    def whole(self, device=None) -> torch.Tensor:
+        """The (capacity, ...) tensor, assembled in slot order on ``device``."""
+        mesh, d = self.sharding.mesh, self.sharding.split_dim
+        device = self.device if device is None else device
+        groups = shard_groups(mesh)
+        sps = self.shape[0] // mesh.n_shards
+        blocks = []
+        for j in range(mesh.n_shards):
+            g = next(i for i, gr in enumerate(groups) if j in gr.shards)
+            pos = groups[g].shards.index(j)
+            rows = [p[pos * sps:(pos + 1) * sps].to(device) for p in self.parts[g]]
+            blocks.append(rows[0] if d is None else torch.cat(rows, dim=d))
+        return torch.cat(blocks)
+
+    def copy_rows(self, g_src: int, row: int, dst) -> "Placed":
+        """A copy with slot ``row`` of group ``g_src`` written to the rows
+        ``dst[g]`` of every group g in ``dst``, piece by piece: position m's
+        piece goes to position m's pieces only. Out of place."""
+        src = [p[row] for p in self.parts[g_src]]
+        parts = []
+        for g, grp in enumerate(self.parts):
+            rows = dst.get(g)
+            if not rows:
+                parts.append(grp)
+                continue
+            new = []
+            for p, s in zip(grp, src):
+                out = p.clone()
+                out[rows] = s.to(p.device)
+                new.append(out)
+            parts.append(tuple(new))
+        return Placed(self.sharding, tuple(parts))
+
+
+def _piece(block: torch.Tensor, d: Optional[int], m: int, n_model: int, device) -> torch.Tensor:
+    """Position m's piece of ``block``, a copy of its own on ``device``."""
+    if d is not None:
+        size = block.shape[d] // n_model
+        block = block.narrow(d, m * size, size)
+    return torch.empty(block.shape, dtype=block.dtype, device=device).copy_(block)
+
+
+def place(a: torch.Tensor, sharding: CohortSharding) -> Placed:
+    """``a`` (capacity, ...) split into the pieces of ``sharding``: each
+    group's slot rows, each model position's piece on its device."""
+    mesh, d = sharding.mesh, sharding.split_dim
+    groups = shard_groups(mesh)
+    rows = bank_placement(groups, a.shape[0] // mesh.n_shards)
+    parts = []
+    for gr, r in zip(groups, rows):
+        block = a[torch.as_tensor(r, device=a.device)]
+        devs = mesh.shard_devices(gr.shards[0])
+        parts.append(tuple(_piece(block, d, m, mesh.model, dv) for m, dv in enumerate(devs)))
+    return Placed(sharding, tuple(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +532,8 @@ def repack_permutation(
 
 
 def _np(a) -> np.ndarray:
+    if isinstance(a, Placed):
+        a = a.whole("cpu")
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
@@ -377,41 +544,59 @@ def gather_allocations(tree: Any, old_slots: np.ndarray) -> Any:
     return tree_map(lambda a: _np(a)[idx], tree)
 
 
-def scatter_allocations(tree: Any, canonical: Any, new_slots) -> Any:
+def _stacked(write, out_shardings, *trees):
+    """``write`` over the trees' leaves, each result placed in its
+    sharding's pieces at once when ``out_shardings`` is given (one whole
+    leaf at a time)."""
+    if out_shardings is None:
+        return tree_map(write, *trees)
+    return tree_map(lambda sh, *a: place(write(*a), sh), out_shardings, *trees)
+
+
+def scatter_allocations(tree: Any, canonical: Any, new_slots, out_shardings=None) -> Any:
     """A copy of the stacked tree with the canonical per-allocation leaves
-    written at ``new_slots`` (out of place, on each leaf's device)."""
+    written at ``new_slots`` (out of place, on each leaf's device). With
+    ``out_shardings`` (a ``bank_shardings`` tree) every leaf lands in its
+    sharding's pieces (a ``Placed``), as a bank of that placement holds it."""
     idx = torch.as_tensor(np.asarray(new_slots, np.int64))
 
-    def put(a, v):
-        a = torch.as_tensor(a)
-        out = a.clone()
-        out[idx.to(a.device)] = torch.as_tensor(v).to(device=a.device, dtype=a.dtype)
+    def write(a, v):
+        out = a.whole() if isinstance(a, Placed) else torch.as_tensor(a).clone()
+        out[idx.to(out.device)] = torch.as_tensor(v).to(device=out.device, dtype=out.dtype)
         return out
 
-    return tree_map(put, tree, canonical)
+    return _stacked(write, out_shardings, tree, canonical)
 
 
 def repack_stacked(
-    tree: Any, capacity: int, n_alloc: int, old_shards: int, new_shards: int
+    tree: Any, capacity: int, n_alloc: int, old_shards: int, new_shards: int, out_shardings=None
 ) -> Any:
     """Re-pack a stacked (old padded capacity, ...) tree into the slot layout
-    of ``new_shards``; slots no allocation maps to hold zeros, as a freshly
-    built bank's unallocated slots do."""
+    of ``new_shards``, on each leaf's device: the live allocations move from
+    their old slots to their new ones; slots no allocation maps to hold
+    zeros, as a freshly built bank's unallocated slots do.
+    ``out_shardings``: as in ``scatter_allocations``."""
     old_slots, new_slots = repack_permutation(n_alloc, capacity, old_shards, new_shards)
-    canonical = gather_allocations(tree, old_slots)
     new_cap = padded_capacity(capacity, new_shards)
-    target = tree_map(
-        lambda a: torch.zeros((new_cap,) + tuple(a.shape[1:]), dtype=torch.as_tensor(a).dtype,
-                              device=torch.as_tensor(a).device),
-        tree,
-    )
-    return scatter_allocations(target, canonical, new_slots)
+    old_idx, new_idx = (torch.as_tensor(np.asarray(i, np.int64)) for i in (old_slots, new_slots))
+
+    def write(a):
+        a = a.whole() if isinstance(a, Placed) else torch.as_tensor(a)
+        out = torch.zeros((new_cap,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
+        out[new_idx.to(a.device)] = a[old_idx.to(a.device)]
+        return out
+
+    return _stacked(write, out_shardings, tree)
 
 
 __all__ = [
+    "CohortSharding",
+    "Placed",
     "ShardGroup",
     "alloc_slots",
     "bank_placement",
+    "bank_shardings",
+    "bank_spec",
     "batch_leaf_spec",
     "batch_shardings",
     "batch_spec",
@@ -422,6 +607,7 @@ __all__ = [
     "param_shardings",
     "param_spec",
     "per_card_bytes",
+    "place",
     "placements",
     "replicated",
     "gather_allocations",
@@ -429,6 +615,7 @@ __all__ = [
     "repack_permutation",
     "repack_stacked",
     "row_placement",
+    "row_sharding",
     "scatter_allocations",
     "shard_groups",
 ]

@@ -89,7 +89,9 @@ class ModelConfig:
     gated_mlp: bool = True  # SwiGLU; False = plain GELU MLP (starcoder2)
     # pad the vocab to this size (0 = off); pad logits are masked to -1e30
     vocab_pad: int = 0
-    # remat policy of the JAX package's training stack ("full" | "outputs")
+    # remat policy of the layer stack (``checkpoint``, ``saved_output``):
+    #   "full"    recompute each layer whole in the backward pass
+    #   "outputs" keep the attention/MLP/MoE outputs, recompute inside them
     remat_policy: str = "full"
     norm_eps: float = 1e-5
     # the JAX package's scan-vs-unroll switch (the port always loops)
@@ -111,6 +113,18 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return max(self.vocab, self.vocab_pad)
+
+    def checkpoint(self):
+        """How ``backbone_apply`` runs one layer, ``ckpt(fn, *args)`` (the
+        reference's ``jax.checkpoint`` under ``remat_policy``): "full"
+        checkpoints the layer whole; "outputs" runs it as it stands, each of
+        its tagged sub-blocks (``saved_output``) under a checkpoint of its
+        own."""
+        if self.remat_policy == "full":
+            return _checkpointed
+        if self.remat_policy == "outputs":
+            return _call
+        raise ValueError(f"unknown remat_policy {self.remat_policy!r} (full | outputs)")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -346,6 +360,27 @@ def _checkpointed(fn, *args):
     return fn(*args)
 
 
+def _call(fn, *args):
+    return fn(*args)
+
+
+def saved_output(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, a sub-block whose result the reference tags for its
+    "outputs" policy (``attn_out``, ``mlp_out``, ``moe_out``; it also names
+    ``ssm_out``, which no code tags). Under ``remat_policy="outputs"`` it
+    runs under a checkpoint of its own and its layer under none: the result
+    is kept from the forward pass, the backward pass recomputes only inside
+    the sub-block and stops before its output projection (the checkpoint's
+    early stop), so the projection and the all-reduce of a DTensor's
+    pending sum run once. The next sub-block's input (``x + result``) is
+    what stays alive: one activation a tagged output that a later
+    sub-block of the layer reads. Under "full" a plain call, inside the
+    layer's checkpoint."""
+    if cfg.remat_policy == "outputs":
+        return _checkpointed(fn, *args)
+    return fn(*args)
+
+
 def attention(params, cfg: ModelConfig, x, positions, window: int = -1):
     """Training-mode causal (optionally sliding-window) GQA attention.
 
@@ -563,9 +598,11 @@ def block_init(key, cfg: ModelConfig):
 
 
 def block_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
-    a = attention(params["attn"], cfg, rmsnorm(params["attn_norm"], x, cfg.norm_eps), positions, window)
+    a = saved_output(cfg, lambda p, x: attention(
+        p["attn"], cfg, rmsnorm(p["attn_norm"], x, cfg.norm_eps), positions, window), params, x)
     x = x + a
-    m = mlp(params["mlp"], rmsnorm(params["mlp_norm"], x, cfg.norm_eps))
+    m = saved_output(cfg, lambda p, x: mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps)),
+                     params, x)
     return x + m
 
 

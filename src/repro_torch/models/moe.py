@@ -37,6 +37,7 @@ from repro_torch.models.common import (
     mlp_init,
     rmsnorm,
     rmsnorm_init,
+    saved_output,
 )
 from repro_torch.utils import spmd
 from repro_torch.utils.tree import tree_map
@@ -218,9 +219,11 @@ def moe_block_init(key, cfg: ModelConfig):
 
 
 def moe_block_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
-    a = attention(params["attn"], cfg, rmsnorm(params["attn_norm"], x, cfg.norm_eps), positions, window)
+    a = saved_output(cfg, lambda p, x: attention(
+        p["attn"], cfg, rmsnorm(p["attn_norm"], x, cfg.norm_eps), positions, window), params, x)
     x = x + a
-    y, aux = moe_apply(params["moe"], cfg, rmsnorm(params["moe_norm"], x, cfg.norm_eps))
+    y, aux = saved_output(cfg, lambda p, x: moe_apply(
+        p["moe"], cfg, rmsnorm(p["moe_norm"], x, cfg.norm_eps)), params, x)
     return x + y, aux
 
 

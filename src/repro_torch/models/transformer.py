@@ -14,8 +14,9 @@ tree of ``rnd.Shard``, ``Model.init_local``), ``out`` holds one card's
 blocks and each leaf draws only that card's elements, from the same keys.
 
 The training forward loops over the layers, each under activation
-checkpointing (the JAX package's ``lax.scan`` of ``jax.checkpoint`` with
-``remat_policy="full"``); the cross-entropy head runs in token chunks of
+checkpointing (the JAX package's ``lax.scan`` of ``jax.checkpoint``):
+whole layers under ``remat_policy="full"``, the attention, MLP and MoE
+sub-blocks, whose outputs are then kept, under "outputs"; the cross-entropy head runs in token chunks of
 ``ce_chunk``, each checkpointed, so the (B, S, V) logits never exist at
 once. ``params["backbone"]`` holds the block stacks that
 ``block_stacks(cfg)`` names, each with its layer axes: ``blocks`` (L,);
@@ -290,13 +291,18 @@ def layers(blocks, dims: Tuple[int, ...]):
 
 def backbone_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
     """x: (B, S, D) -> (B, S, D), aux dict. One layer (llama4: one dense /
-    MoE pair) at a time, each under activation checkpointing (remat
-    "full"), except the sLSTM layers: their activations are small, and a
-    recompute would run their time loop (launch-bound) once more. The MoE
-    layers' lb and z losses are summed and divided by n_layers (llama4: by
-    the number of pairs); the other families' are zero."""
+    MoE pair) at a time, each under ``cfg.checkpoint()`` (remat "full": the
+    layer checkpointed whole; "outputs": its attention, MLP and MoE
+    sub-blocks each, ``common.saved_output``). The SSM layers (Mamba-2,
+    mLSTM) are checkpointed alone under either policy, as the reference
+    tags nothing inside them; the sLSTM layers under none: their
+    activations are small, and a recompute would run their time loop
+    (launch-bound) once more. The MoE layers' lb and z losses are summed and
+    divided by n_layers (llama4: by the number of pairs); the other
+    families' are zero."""
     stacks = block_stacks(cfg)
     per = {name: layers(params[name], dims) for name, dims in stacks.items()}
+    ckpt = cfg.checkpoint()
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
     zero = {"lb_loss": lb, "z_loss": zl}
@@ -307,7 +313,7 @@ def backbone_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
         for sup in per["mamba"]:
             for p in sup:
                 x = _checkpointed(mamba, p, x)
-            x = _checkpointed(lambda p, x: block_apply(p, cfg, x, positions, window), per["shared_attn"], x)
+            x = ckpt(lambda p, x: block_apply(p, cfg, x, positions, window), per["shared_attn"], x)
         for p in per.get("mamba_tail", []):
             x = _checkpointed(mamba, p, x)
         return x, zero
@@ -319,7 +325,7 @@ def backbone_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
         return x, zero
     if cfg.family != "moe":
         for p in per["blocks"]:
-            x = _checkpointed(lambda p, x: block_apply(p, cfg, x, positions, window), p, x)
+            x = ckpt(lambda p, x: block_apply(p, cfg, x, positions, window), p, x)
         return x, zero
 
     def layer(p, x):
@@ -330,7 +336,7 @@ def backbone_apply(params, cfg: ModelConfig, x, positions, window: int = -1):
 
     pairs = list(zip(*per.values()))
     for p in pairs:
-        x, l_i, z_i = _checkpointed(layer, list(p), x)
+        x, l_i, z_i = ckpt(layer, list(p), x)
         lb, zl = lb + l_i, zl + z_i
     return x, {"lb_loss": lb / len(pairs), "z_loss": zl / len(pairs)}
 

@@ -37,10 +37,12 @@ class Model:
                        self.init_shapes(), shards)
         return transformer.model_init(key.to(dev), self.cfg, out, shards)
 
-    def init_shapes(self) -> Dict[str, Any]:
+    def init_shapes(self, key=None) -> Dict[str, Any]:
         """The params tree on the ``meta`` device: shapes and dtypes, no
-        storage and no arithmetic."""
-        return transformer.model_init(rnd.key(0, device="meta"), self.cfg)
+        storage and no arithmetic (``key``, where given, goes to the meta
+        device too: the shapes do not depend on it)."""
+        key = rnd.key(0, device="meta") if key is None else key.to("meta")
+        return transformer.model_init(key, self.cfg)
 
     def forward(self, params, batch, window: int = -1):
         return transformer.forward(params, self.cfg, batch, window)

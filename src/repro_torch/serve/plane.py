@@ -12,7 +12,9 @@ cohort models. Per admitted batch:
 2. **infer** — the mixed-cohort batch becomes ONE batched inference:
    gather each query's cohort slot row from the stacked bank and run
    ``task.logits`` on the stacked rows (``torch.bmm`` over rows), argmax.
-   One inference per batch, however many cohorts it spans.
+   One inference per batch, however many cohorts it spans, at a
+   power-of-two width of at least ``bucket_min`` (the reference's
+   bucketing), padded with the batch's first query and cut back after.
 
 All reads go through ``pipeline.serve_params`` — the round-boundary
 snapshot the pipeline republishes after each round — so serving never
@@ -30,14 +32,19 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.fl.pipeline import _next_pow2
 from repro_torch.serve.admission import AdmissionBatcher
 from repro_torch.serve.stream import QueryStream
 
 
 class ServingPlane:
-    def __init__(self, engine, max_batch: int = 256, max_wait: float = 1e-3):
+    def __init__(self, engine, max_batch: int = 256, max_wait: float = 1e-3, bucket_min: int = 8):
         self.eng = engine
         self.batcher = AdmissionBatcher(max_batch=max_batch, max_wait=max_wait)
+        # each batch runs at a power-of-two width of at least bucket_min
+        # (the reference buckets its jit cache so), padded with its first
+        # query; only the real rows are returned
+        self.bucket_min = int(bucket_min)
         # dispatch/observability counters (CI tripwires)
         self.infer_dispatches = 0
         self.batches_served = 0
@@ -126,13 +133,16 @@ class ServingPlane:
             return np.zeros(0, np.int64)
         params = self.snapshot() if params is None else params
         slots = self.route_slots(ids, params)
+        pad = max(self.bucket_min, _next_pow2(ids.size)) - ids.size
+        ids_p = np.concatenate([ids, np.full(pad, ids[0], np.int64)])
+        slots_p = np.concatenate([slots, np.full(pad, slots[0], np.int64)])
         dev = self.eng.device
-        x = torch.from_numpy(self._query_inputs(ids)).to(dev)
-        preds = self._infer(params, torch.from_numpy(slots).to(dev), x)
+        x = torch.from_numpy(self._query_inputs(ids_p)).to(dev)
+        preds = self._infer(params, torch.from_numpy(slots_p).to(dev), x)
         self.infer_dispatches += 1
         self.batches_served += 1
         self.queries_served += int(ids.size)
-        return preds.cpu().numpy().astype(np.int64)
+        return preds[: ids.size].cpu().numpy().astype(np.int64)
 
     # ------------------------------------------------------------- stream
     def serve_stream(self, stream: QueryStream, params=None) -> Tuple[np.ndarray, List]:

@@ -301,3 +301,18 @@ def test_mini_probe_counts_no_more_than_its_tensor_returning_ops(mesh22, monkeyp
                                MINI_STEP, True, mesh=mesh22, policy="fsdp")
     assert seen["prim::device"] > 100
     assert 0 < counts.bytes_accessed <= seen["bytes"]
+
+
+def test_lower_one_without_probes_counts_the_whole_step():
+    """``lower_one(probes=False)`` plans from one count of the whole step
+    (``roofline_extrapolated`` false, as the reference reports it without
+    its probes); at 2 layers the probes' extrapolation to 2 units is that
+    count itself."""
+    kw = dict(cfg_overrides={"n_layers": 2})
+    once = dryrun.lower_one("granite-3-2b", "decode_32k", False, probes=False, **kw)
+    probed = dryrun.lower_one("granite-3-2b", "decode_32k", False, **kw)
+    assert once["roofline_extrapolated"] is False and probed["roofline_extrapolated"] is True
+    assert once["probes"]["units"] == [2] and probed["probes"]["units"] == [1, 2]
+    assert once["memory"] == probed["memory"]
+    for k in ("flops_per_device", "bytes_per_device", "coll_bytes_per_device", "coll_by_op"):
+        assert once["roofline"][k] == probed["roofline"][k], k

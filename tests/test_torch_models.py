@@ -89,6 +89,20 @@ def test_param_count_matches_jax(arch):
     assert all(a.device.type == "meta" for a in _flat(tm.init_shapes()).values())
 
 
+@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b"])
+def test_init_shapes_takes_a_key(arch):
+    """``init_shapes(key)``, as the reference's: the key changes no shape;
+    the result stays on the meta device."""
+    jm, tm = jbuild(jconfigs.reduce_config(jconfigs.get_config(arch))), tbuild(
+        tconfigs.reduce_config(tconfigs.get_config(arch)))
+    want = _flat(jm.init_shapes(jax.random.key(7)))
+    for key in (None, rnd.key(7), rnd.key(7, device="meta")):
+        got = _flat(tm.init_shapes(key))
+        assert got.keys() == want.keys()
+        for k, a in got.items():
+            assert a.device.type == "meta" and tuple(a.shape) == want[k].shape, k
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_model_init_matches_jax(arch):
     jcfg = jconfigs.reduce_config(jconfigs.get_config(arch)).replace(vocab=96, vocab_pad=128)

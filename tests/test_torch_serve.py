@@ -260,6 +260,32 @@ def test_serving_plane_matches_jax(engines):
     assert tp.serve_batch(np.zeros(0, np.int64)).shape == (0,)
 
 
+@pytest.mark.parametrize("bucket_min", [1, 8])
+def test_serving_plane_buckets_match_jax(engines, bucket_min):
+    """``bucket_min``: every admitted batch runs at the reference's width,
+    max(bucket_min, next power of two), padded with its first query; the
+    answers of the real rows and the inference count equal the
+    reference plane's."""
+    je, te = engines
+    hot, cold = _pools(te)
+    jp = JPlane(je, max_batch=64, bucket_min=bucket_min)
+    tp = ServingPlane(te, max_batch=64, bucket_min=bucket_min)
+    widths, infer = [], tp._infer
+    tp._infer = lambda params, slots, x: (widths.append(int(x.shape[0])), infer(params, slots, x))[1]
+    cfg = dict(n_queries=300, hot_frac=0.7, seed=5)
+    pa, ba = jp.serve_stream(JStream(JStreamConfig(**cfg), hot, cold))
+    pb, bb = tp.serve_stream(QueryStream(StreamConfig(**cfg), hot, cold))
+    np.testing.assert_array_equal(pb, pa)
+    assert [b.ids.size for b in bb] == [b.ids.size for b in ba]
+    assert widths == [max(bucket_min, 1 << (b.ids.size - 1).bit_length()) for b in bb]
+    assert sorted(set(widths)) == sorted(jp._infer_cache)
+    assert tp.infer_dispatches == jp.infer_dispatches == len(bb) and tp.queries_served == 300
+    # a batch of 3: 8 rows inferred at bucket_min 8, 3 answers, as in JAX
+    ids = hot[:3]
+    np.testing.assert_array_equal(tp.serve_batch(ids), jp.serve_batch(ids))
+    assert widths[-1] == max(bucket_min, 4)
+
+
 def test_probe_cache_is_invalidated_after_a_partition(engines):
     _, te = engines
     _, cold = _pools(te)
