@@ -20,6 +20,9 @@
         # the full 48 layers
     python3 chip_smoke.py --drivers       # build + phase 19 alone
     python3 chip_smoke.py --options       # build + phase 20 alone (with a warm-up round)
+    python3 chip_smoke.py --paper         # build + phase 21 alone
+    python3 chip_smoke.py --paper-full    # build, two dry-run plans, then every suite of
+        # ``python -m repro_torch.paper.run --full`` (paper scale; not in the default run)
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
   1. device: CUDA must be present; prints the card's name and power limit;
@@ -83,12 +86,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      ``examples/robust_fl.py``'s failover on phase 4's engine: checkpoint ->
      recover, ``rebuild_from_requests`` from 200 clients' requests, and
      ``feedback`` on the card and on the CPU from the same checkpoint
-     (equal assignments, rewards within 1e-5 relative); (c) Table 5 (``benchmarks/table5_clustered_fl.py``
-     on femnist-like: 800 clients, 80 rounds, k 4): ``run_fl``, ``run_auxo``,
-     the paper-faithful Auxo, IFCA, FL+HC, FlexCFL, and CFL on its
-     100-client scenario, all finite with their cost invariants, wall
-     seconds and ``_agglomerative``'s host seconds apart; (d) every call
-     shape of the phase held against the plain version.
+     (equal assignments, rewards within 1e-5 relative); (d) every call
+     shape of the phase held against the plain version (Table 5, once
+     12c, runs in phase 21).
  13. the model families (plain versions raise on CUDA tensors; the phase's
      segment launches counted from 0): (a) reduced qwen3-moe and llama4
      (4 experts), 3 federated rounds and 2 central steps each, on the CPU
@@ -202,6 +202,19 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      plain version on a CPU copy, the launches counted from 0; (c) phase
      4's run served 64 queries one at a time by ``ServingPlane(max_batch=1,
      bucket_min=1)`` and at once by the batched plane: the same answers.
+ 21. the paper's drivers (``repro_torch.paper``; plain versions raise on
+     CUDA tensors, every run's round-kernel launches counted from 0): (a)
+     each driver at 16 rounds on its own full-size scenario (Tables 3 and
+     4 on openimage-like; Figures 13 and 14 at each sweep's default and one
+     other value), and Table 5 at its own settings on femnist-like (800
+     clients, 80 rounds, k 4: Auxo, the paper-faithful Auxo, IFCA, FL+HC,
+     FlexCFL, and CFL on its 100-client scenario, with 12c's cost
+     invariants): finite rows, Auxo partitioned, Auxo runs launching both
+     round kernels, the no-cohort runs and Figure 12's engine the segment
+     kernel, the baselines none; (b) Table 3 on a 120-client cut on the
+     card and on the CPU: equal discrete fields, floats within the round
+     tolerance; (c) every call shape of the phase held against the plain
+     version.
 Memory plan of phase 7 (float32, the reference's dtype): the bank holds 3
 slots of 2,533,531,648 params (30.4 GB), ``decode`` gathers the 2 live rows
 (20.3 GB), the paged KV cache is 0.17 GB: about 51 GB of the card's 80 GB.
@@ -1752,16 +1765,10 @@ def engine_modes_only(torch) -> int:
     return 0
 
 # ------------------------------------------- phase 12: evaluation and baselines
-# benchmarks/table5_clustered_fl.py at its own settings: the femnist-like
-# population of benchmarks/common.py (800 clients, 2 groups), 80 rounds of
-# 100 participants without availability traces, k 4, FL+HC warm-up
-# max(4, 80 // 8); CFL on its 100-client, 20-round scenario (60
-# participants a round asked for, all 100 train: full participation)
-T5_POP = dict(seed=1, n_clients=800, n_groups=2, group_sep=0.0, dirichlet=2.0, label_conflict=0.5)
+# Table 5 (benchmarks/table5_clustered_fl.py) at its own settings runs in
+# phase 21 through repro_torch.paper: femnist-like, 80 rounds, k 4
 T5_ROUNDS = 80
 T5_K = 4
-CFL_POP = dict(n_clients=100, n_groups=2, group_sep=0.0, label_conflict=0.5, seed=2)
-CFL_FL = dict(rounds=20, participants_per_round=60, eval_every=2, use_availability=False, seed=1)
 FTFA_STEPS = 5
 FEEDBACK_ROWS = 100  # 12b's feedback call: the first fingerprinted clients
 
@@ -1792,27 +1799,13 @@ def ftfa_captured(torch, eng):
     return value, seen["params"], secs
 
 
-def baseline_row(name, hist, wall, agglo=None):
-    last = hist[-1]
-    vals = [last["acc_mean"], last["resource"], last["time"]]
-    if not all(math.isfinite(float(v)) for h in hist for v in (h["acc_mean"], h["resource"], h["time"])):
-        raise AssertionError(f"12c {name}: a non-finite history value")
-    if not 0.0 <= last["acc_mean"] <= 1.0:
-        raise AssertionError(f"12c {name}: acc_mean {last['acc_mean']}")
-    return dict(algo=name, acc_mean=vals[0], resource=vals[1], time=vals[2],
-                comm=last.get("comm", "-"), wall_s=wall, agglomerative_host_s=agglo)
-
-
 def eval_baselines_phase(torch, np, ops, ref, cs, sa, eng, small) -> dict:
     """Phase 12 on phase 4's engine ``eng`` and phase 4a's engines
-    ``small`` (card and CPU): FTFA (12a), coordinator failover (12b), Table
-    5 (12c), then every kernel call shape of the phase held against the
-    plain version (12d). Plain versions raise on CUDA tensors throughout;
-    each path's launches are counted from 0."""
+    ``small`` (card and CPU): FTFA (12a), coordinator failover (12b), then
+    every kernel call shape of the phase held against the plain version
+    (12d; Table 5, once 12c, runs in phase 21). Plain versions raise on
+    CUDA tensors throughout; each path's launches are counted from 0."""
     from repro_torch.core.coordinator import CohortCoordinator
-    from repro_torch.data import make_population
-    from repro_torch.fl import AuxoConfig, FLConfig, MLPTask, run_auxo, run_fl
-    from repro_torch.fl.baselines import CFL, FLHC, IFCA, FlexCFL
 
     counts = Launches(cs, sa)
     shapes = {"cosine_similarity": {}, "segment_aggregate": {}}
@@ -1897,67 +1890,14 @@ def eval_baselines_phase(torch, np, ops, ref, cs, sa, eng, small) -> dict:
         out["failover"] = dict(leaves=co2.tree.leaves(), requests=len(reqs), rebuilt=co3.tree.leaves(),
                                reward_gap=fb_gap)
 
-        # -------------------------------------------------- 12c: Table 5
-        pop = make_population(**T5_POP)
-        task = MLPTask(dim=pop.dim, n_classes=pop.n_classes)
-        fl = FLConfig(rounds=T5_ROUNDS, participants_per_round=100, eval_every=max(2, T5_ROUNDS // 20),
-                      use_availability=False, seed=1)
-        rows = []
-
-        def timed(fn, path=None):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with counts(path) if path else contextlib.nullcontext():
-                res = fn()
-            torch.cuda.synchronize()
-            return res, time.perf_counter() - t0
-
-        hist, wall = timed(lambda: run_fl(task, pop, fl, device="cuda"), "12c fl")
-        rows.append(baseline_row("fl", hist, wall))
-        for name, kw in (("auxo", {}), ("auxo-paper-faithful", dict(assisted_matching=False))):
-            (_, hist), wall = timed(lambda: run_auxo(task, pop, fl, AuxoConfig(**AUXO, **kw), device="cuda"),
-                                    f"12c {name}")
-            rows.append(baseline_row(name, hist, wall))
-        algos = (("ifca", IFCA(task, pop, fl, T5_K, device="cuda")),
-                 ("fl+hc", FLHC(task, pop, fl, T5_K, warmup_rounds=max(4, T5_ROUNDS // 8), device="cuda")),
-                 ("flexcfl", FlexCFL(task, pop, fl, T5_K, device="cuda")))
-        per_round = fl.participants_per_round * fl.local_steps * fl.batch_size
-        full_pass = pop.n_clients * fl.local_steps * fl.batch_size
-        for name, algo in algos:
-            hist, wall = timed(algo.run, f"12c {name}")
-            rows.append(baseline_row(name, hist, wall, None if name == "ifca" else algo.agglomerative_s))
-            if name == "ifca" and hist[-1]["comm"] != T5_K * fl.participants_per_round * T5_ROUNDS:
-                raise AssertionError(f"12c ifca: comm {hist[-1]['comm']}")
-            if name != "ifca" and hist[-1]["resource"] != T5_ROUNDS * per_round + full_pass:
-                raise AssertionError(f"12c {name}: resource {hist[-1]['resource']} lacks the full pass")
-        spop = make_population(**CFL_POP)
-        cfl = CFL(MLPTask(dim=spop.dim, n_classes=spop.n_classes), spop, FLConfig(**CFL_FL), 2,
-                  device="cuda")
-        hist, wall = timed(cfl.run, "12c cfl")
-        rows.append(baseline_row("cfl (100 clients, 20 rounds)", hist, wall, cfl.agglomerative_s))
-        if hist[-1]["resource"] != spop.n_clients * cfl.fl.local_steps * cfl.fl.batch_size * CFL_FL["rounds"]:
-            raise AssertionError(f"12c cfl: resource {hist[-1]['resource']} is not full participation")
-        for row in rows:
-            agglo = row["agglomerative_host_s"]
-            print(f"[eval] 12c {row['algo']}: acc_mean {row['acc_mean']:.4f}, resource "
-                  f"{row['resource']:.0f}, comm {row['comm']}, simulated time {row['time']:.1f} s, "
-                  f"wall {row['wall_s']:.3f} s"
-                  + ("" if agglo is None else f" (of it _agglomerative {agglo:.3f} s of host time)"),
-                  flush=True)
-        out["table5"] = rows
     finally:
         for u in undo:
             u()
-    for path in ("12b feedback cuda", "12c auxo", "12c auxo-paper-faithful"):
-        if min(counts.by_path[path].values()) <= 0:
-            raise AssertionError(f"12: a round kernel never launched on {path}: {counts.by_path[path]}")
-    # FedAvg's round aggregates on the segment kernel and clusters nothing;
-    # FTFA's routing is numpy and the baselines aggregate with a plain mean
-    if counts.by_path["12c fl"]["segment_aggregate"] <= 0:
-        raise AssertionError(f"12c fl: the segment kernel never launched: {counts.by_path['12c fl']}")
-    for path in ("12a ftfa", "12c ifca", "12c fl+hc", "12c flexcfl", "12c cfl"):
-        if max(counts.by_path[path].values()) != 0:
-            raise AssertionError(f"12: {path} launched a round kernel: {counts.by_path[path]}")
+    if min(counts.by_path["12b feedback cuda"].values()) <= 0:
+        raise AssertionError(f"12b: a round kernel never launched: {counts.by_path['12b feedback cuda']}")
+    # FTFA's routing is numpy
+    if max(counts.by_path["12a ftfa"].values()) != 0:
+        raise AssertionError(f"12a ftfa launched a round kernel: {counts.by_path['12a ftfa']}")
     # ------------------------------------------------ 12d: call shapes
     worst = check_rows(torch, ops, ref, list(shapes["cosine_similarity"]), list(shapes["segment_aggregate"]))
     print(f"[eval] launches by path {counts.by_path}", flush=True)
@@ -1987,7 +1927,7 @@ def eval_baselines_only(torch) -> int:
     print(f"[main] run_auxo openimage-like, {ROUNDS} rounds: {secs / ROUNDS:.4f} s/round")
     out = eval_baselines_phase(torch, np, ops, ref, cs, sa, eng, small)
     print(json.dumps({"eval_baselines_launches": out["by_path"], "max_abs_err": out["worst"],
-                      "table5": out["table5"], "ftfa": out["ftfa"]}))
+                      "ftfa": out["ftfa"]}))
     print(smi())
     return 0
 
@@ -4553,6 +4493,294 @@ def options_only(torch) -> int:
     return 0
 
 
+# ------------------------------------------------- phase 21: the paper's drivers
+# repro_torch.paper's drivers at a cut, each on its own full-size scenario:
+# 16 rounds, one scenario each (Tables 3 and 4 on openimage-like), Figures
+# 13 and 14 at each sweep's default and one other value; Table 5 at its own
+# settings on femnist-like (80 rounds, k 4, and CFL's 100-client, 20-round
+# scenario: phase 12c's run, moved here); then (b) Table 3 on a 120-client
+# cut of openimage-like on the card and on the CPU
+PAPER_ROUNDS = 16
+PAPER_CUTS = {
+    "fig13_sensitivity": dict(AFFINE_SHIFTS=(0.0, 1.0), PARTITION_STARTS=(0.08, 0.3), MAX_COHORTS=(4, 2),
+                              CLUSTER_STARTS=(0.03, 0.15)),
+    "fig14_resilience": dict(LDP_SIGMAS=(0.0, 0.6), CORRUPT_FRACS=(0.0, 0.1), AFFINITY_LOSS_RATES=(0.0, 0.1)),
+    "table5_clustered_fl": dict(DATASETS=("femnist-like",)),
+}
+PAPER_SMALL_CLIENTS = 120  # 21b: tests/torch_paper_cases.py's cut at 120 clients, 12 rounds
+PAPER_SMALL_FL = dict(participants_per_round=40, use_availability=False)
+PAPER_SMALL_ROUNDS = 12
+ACC_ROW_KEYS = ("target_acc", "base_final", "auxo_final", "worst10", "best10", "auxo_worst10", "ftfa_auxo")
+
+
+@contextlib.contextmanager
+def patched(mod, **attrs):
+    """Set module attributes for the duration, then put the old ones back."""
+    old = {k: getattr(mod, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(mod, k, v)
+
+
+def windowed(mod, counts, tag: str, runs: list, baselines: dict):
+    """Wrap a driver module's run_fl / run_auxo and baseline classes: each
+    call runs in a launch window of its own (``tag kind #i``) and its
+    history (and baseline object) is recorded. Returns the attributes to
+    patch."""
+    attrs = {}
+    for kind in ("run_fl", "run_auxo"):
+        if hasattr(mod, kind):
+            def call(*a, _o=getattr(mod, kind), _k=kind, **kw):
+                with counts(f"{tag} {_k} #{len(runs)}"):
+                    out = _o(*a, **kw)
+                runs.append((_k, out[1] if _k == "run_auxo" else out))
+                return out
+            attrs[kind] = call
+    for cls_name in ("IFCA", "FLHC", "FlexCFL", "CFL"):
+        if hasattr(mod, cls_name):
+            base = getattr(mod, cls_name)
+
+            def run(self, _base=base, _n=cls_name):
+                t0 = time.perf_counter()
+                with counts(f"{tag} {_n.lower()}"):
+                    hist = _base.run(self)
+                baselines[_n] = (self, hist, time.perf_counter() - t0)
+                return hist
+
+            attrs[cls_name] = type(cls_name, (base,), {"run": run})
+    return attrs
+
+
+def paper_drivers(torch, device, counts) -> dict:
+    """Phase 21a: every driver of ``repro_torch.paper`` at the cut above on
+    ``device``, each run_fl / run_auxo / baseline in a launch window of its
+    own (fig12's engine in one window), with each driver's rows, histories,
+    baselines and seconds."""
+    import importlib
+
+    plan = [
+        ("table3_tta", lambda m: m.run(PAPER_ROUNDS, scenarios=["openimage-like"], device=device)),
+        ("table4_bias", lambda m: m.run(PAPER_ROUNDS, scenarios=["openimage-like"], device=device)),
+        ("fig10_algorithms", lambda m: m.run(PAPER_ROUNDS, device=device)),
+        ("fig12_correlation", lambda m: m.run(PAPER_ROUNDS, device=device)),
+        ("fig13_sensitivity", lambda m: m.run(PAPER_ROUNDS, device=device)),
+        ("fig14_resilience", lambda m: m.run(PAPER_ROUNDS, device=device)),
+        ("table5_clustered_fl", lambda m: m.run(T5_ROUNDS, device=device)),
+    ]
+    out = {}
+    for name, call in plan:
+        mod = importlib.import_module(f"repro_torch.paper.{name}")
+        runs, baselines = [], {}
+        attrs = {**PAPER_CUTS.get(name, {}), **windowed(mod, counts, f"21 {name}", runs, baselines)}
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patched(mod, **attrs), (counts(f"21 {name} engine") if name == "fig12_correlation"
+                                     else contextlib.nullcontext()):
+            rows = call(mod)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out[name] = dict(rows=rows, runs=runs, baselines=baselines, s=time.perf_counter() - t0)
+        print(f"[paper] 21a {name}: {len(rows)} rows, {len(runs)} runs"
+              + (f" and {len(baselines)} baselines" if baselines else "")
+              + f" in {out[name]['s']:.2f} s", flush=True)
+    return out
+
+
+def check_paper_rows(out: dict):
+    """21a's outputs: finite rows (fig13's no-baseline rows hold NaN by
+    design), accuracies in [0, 1], Auxo partitioned where the cut lets it
+    (Tables 3 and 4, FedYoGi under Figure 10, both Auxo runs of Table 5),
+    and Table 5's cost invariants (phase 12c's)."""
+    for name, d in out.items():
+        for row in d["rows"]:
+            for k, v in row.items():
+                if isinstance(v, float) and not math.isfinite(v) and not (k == "base_final" and v != v):
+                    raise AssertionError(f"21a {name}: {k} = {v} in {row}")
+                if k in ACC_ROW_KEYS and v == v and not 0.0 <= v <= 1.0:
+                    raise AssertionError(f"21a {name}: {k} = {v} outside [0, 1]")
+        for kind, hist in d["runs"]:
+            if not all(math.isfinite(h[k]) for h in hist for k in ("acc_mean", "resource", "time")):
+                raise AssertionError(f"21a {name}: a non-finite history value in a {kind}")
+    parted = [out["table3_tta"]["rows"][0]["n_cohorts"],
+              out["table4_bias"]["runs"][1][1][-1]["n_cohorts"],
+              out["fig10_algorithms"]["runs"][1][1][-1]["n_cohorts"]]
+    parted += [h[-1]["n_cohorts"] for k, h in out["table5_clustered_fl"]["runs"] if k == "run_auxo"]
+    if min(parted) < 2:
+        raise AssertionError(f"21a: an Auxo run that should partition did not: n_cohorts {parted}")
+    b = out["table5_clustered_fl"]["baselines"]
+    fl = b["IFCA"][0].fl
+    per_round = fl.participants_per_round * fl.local_steps * fl.batch_size
+    full_pass = b["IFCA"][0].pop.n_clients * fl.local_steps * fl.batch_size
+    if b["IFCA"][1][-1]["comm"] != T5_K * fl.participants_per_round * T5_ROUNDS:
+        raise AssertionError(f"21a ifca: comm {b['IFCA'][1][-1]['comm']}")
+    for n in ("FLHC", "FlexCFL"):
+        if b[n][1][-1]["resource"] != T5_ROUNDS * per_round + full_pass:
+            raise AssertionError(f"21a {n}: resource {b[n][1][-1]['resource']} lacks the full pass")
+    cfl, hist, _ = b["CFL"]
+    if hist[-1]["resource"] != cfl.pop.n_clients * cfl.fl.local_steps * cfl.fl.batch_size * cfl.fl.rounds:
+        raise AssertionError(f"21a cfl: resource {hist[-1]['resource']} is not full participation")
+    return parted
+
+
+def paper_card_vs_cpu(torch, counts) -> dict:
+    """Phase 21b: Table 3's driver on a 120-client cut of openimage-like,
+    on the card and on the CPU: equal discrete fields (every history's
+    round, resource, time and n_cohorts too), floats within the round
+    tolerance (rtol 1e-4, atol 1e-5)."""
+    from repro_torch.paper import common, table3_tta
+
+    small = {**common.SCENARIOS["openimage-like"], "n_clients": PAPER_SMALL_CLIENTS}
+    cut_fl = lambda rounds=100, seed=1, **kw: common.default_fl(rounds, seed, **{**PAPER_SMALL_FL, **kw})  # noqa: E731
+    res = {}
+    with patched(common, SCENARIOS={**common.SCENARIOS, "openimage-like": small}):
+        for dev in ("cuda", "cpu"):
+            runs = []
+            attrs = {"default_fl": cut_fl, **windowed(table3_tta, counts, f"21b {dev}", runs, {})}
+            with patched(table3_tta, **attrs):
+                rows = table3_tta.run(PAPER_SMALL_ROUNDS, scenarios=["openimage-like"], device=dev)
+            res[dev] = (rows, runs)
+    (rg, hg), (rc, hc) = res["cuda"], res["cpu"]
+    gap = 0.0
+    for a, b in zip(rg, rc):
+        for k, v in a.items():
+            if isinstance(v, float):
+                gap = max(gap, abs(v - b[k]))
+                if not math.isclose(v, b[k], rel_tol=1e-4, abs_tol=1e-5):
+                    raise AssertionError(f"21b {k}: card {v} vs CPU {b[k]}")
+            elif v != b[k]:
+                raise AssertionError(f"21b {k}: card {v} vs CPU {b[k]}")
+    for (_, ha), (_, hb) in zip(hg, hc):
+        for a, b in zip(ha, hb):
+            if [a[k] for k in ("round", "resource", "time", "n_cohorts")] != \
+                    [b[k] for k in ("round", "resource", "time", "n_cohorts")]:
+                raise AssertionError(f"21b: history rows differ card {a['round']} vs CPU {b['round']}")
+            for k in ("acc_mean", "acc_worst10", "acc_best10"):
+                gap = max(gap, abs(a[k] - b[k]))
+                if not math.isclose(a[k], b[k], rel_tol=1e-4, abs_tol=1e-5):
+                    raise AssertionError(f"21b round {a['round']} {k}: card {a[k]} vs CPU {b[k]}")
+    if len(rg) != len(rc) or len(hg) != len(hc) or rg[0]["n_cohorts"] < 2:
+        raise AssertionError(f"21b: rows {rg} vs {rc}")
+    return dict(rows=rg, gap=gap)
+
+
+def paper_phase(torch, np, ops, ref, cs, sa) -> dict:
+    """Phase 21: the paper's drivers on the card (21a), Table 3 card vs CPU
+    (21b), then every call shape of the phase held against the plain
+    version (21c). Plain versions raise on CUDA tensors throughout; every
+    run's launches are counted from 0: Auxo runs launch both round kernels,
+    the no-cohort runs and Figure 12's engine the segment kernel, the four
+    baselines none."""
+    t_phase = time.perf_counter()
+    counts = Launches(cs, sa)
+    shapes = {"cosine_similarity": {}, "segment_aggregate": {}}
+    undo = [
+        record(cs, "cosine_similarity",
+               lambda x, c, eps=1e-8: (tuple(x.shape), tuple(c.shape), x.dtype),
+               shapes["cosine_similarity"]),
+        record(sa, "segment_aggregate",
+               lambda d, i, k, w=None: (tuple(d.shape), int(k), d.dtype, w is not None),
+               shapes["segment_aggregate"]),
+        forbid_cuda_in_plain(torch, ref),
+    ]
+    try:
+        drivers = paper_drivers(torch, "cuda", counts)
+        small = paper_card_vs_cpu(torch, counts)
+    finally:
+        for u in undo:
+            u()
+    parted = check_paper_rows(drivers)
+    for path, n in counts.by_path.items():
+        kind = path.split()[2]
+        if path.startswith("21b cpu"):
+            want = n["cosine_similarity"] == n["segment_aggregate"] == 0
+        elif kind == "run_auxo":
+            want = min(n.values()) > 0
+        elif kind in ("run_fl", "engine"):
+            want = n["segment_aggregate"] > 0
+        else:  # the baselines aggregate with a plain mean
+            want = max(n.values()) == 0
+        if not want:
+            raise AssertionError(f"21: launches {n} on {path}")
+    for name, d in drivers.items():
+        for row in d["rows"]:
+            print(f"[paper] 21a {name} {json.dumps(row)}", flush=True)
+        for n, (obj, hist, s) in d["baselines"].items():
+            agglo = getattr(obj, "agglomerative_s", None)
+            print(f"[paper] 21a {name} {n}: acc_mean {hist[-1]['acc_mean']:.4f}, resource "
+                  f"{hist[-1]['resource']:.0f}, comm {hist[-1].get('comm', '-')}, wall {s:.3f} s"
+                  + ("" if agglo is None else f" (of it _agglomerative {agglo:.3f} s of host time)"), flush=True)
+    print(f"[paper] 21a Auxo runs that partition: n_cohorts {parted}", flush=True)
+    print(f"[paper] 21b Table 3 on {PAPER_SMALL_CLIENTS} clients, card == CPU discrete fields, floats "
+          f"max |card - CPU| {small['gap']:.3e} (rtol 1e-4, atol 1e-5): {json.dumps(small['rows'])}", flush=True)
+    # ------------------------------------------------ 21c: call shapes
+    worst = check_rows(torch, ops, ref, list(shapes["cosine_similarity"]), list(shapes["segment_aggregate"]))
+    by_driver = {}
+    for path, n in counts.by_path.items():
+        acc = by_driver.setdefault(path.split()[1] if path.startswith("21 ") else "21b card vs CPU",
+                                   dict.fromkeys(ROUND_KERNELS, 0))
+        for k in ROUND_KERNELS:
+            acc[k] += n[k]
+    secs = time.perf_counter() - t_phase
+    print(f"[paper] launches by driver {by_driver}", flush=True)
+    print(f"[paper] {len(shapes['cosine_similarity'])} cosine and {len(shapes['segment_aggregate'])} segment "
+          f"call shapes of phase 21 held against the plain version: max |err| {worst}", flush=True)
+    print(f"[paper] seconds by driver {({k: round(d['s'], 2) for k, d in drivers.items()})}; phase 21 took "
+          f"{secs:.1f} s", flush=True)
+    return dict(launches={k: sum(n[k] for n in counts.by_path.values()) for k in ROUND_KERNELS},
+                by_driver=by_driver, by_path=counts.by_path, worst=worst, seconds=secs,
+                driver_seconds={k: d["s"] for k, d in drivers.items()})
+
+
+def paper_only(torch) -> int:
+    """``--paper``: build, then phase 21 alone."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import segment_aggregate as sa
+
+    card = smi()
+    print(card)
+    print(f"[build] {build.build()}")
+    out = paper_phase(torch, np, ops, ref, cs, sa)
+    print(json.dumps({"paper": {"by_driver": out["by_driver"], "max_abs_err": out["worst"],
+                                "seconds": out["seconds"], "driver_seconds": out["driver_seconds"]}}))
+    print(card)
+    return 0
+
+
+# --paper-full: the dry-run plans the roofline table reads (two archs), then
+# every suite of ``python -m repro_torch.paper.run --full`` on the card
+PAPER_FULL_DRYRUNS = (("granite-3-2b", "train_4k"), ("qwen3-moe-235b-a22b", "train_4k"))
+
+
+def paper_full(torch) -> int:
+    """``--paper-full``: build, the dry runs of ``PAPER_FULL_DRYRUNS``, then
+    ``python -m repro_torch.paper.run --full`` on the card (its CSV blocks
+    and each suite's seconds), in child processes that stop before this
+    returns."""
+    from repro_torch.kernels import build
+
+    card = smi()
+    print(card)
+    print(f"[build] {build.build()}", flush=True)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    for arch, shape in PAPER_FULL_DRYRUNS:
+        subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape],
+                       cwd=ROOT, env=env, check=True, timeout=900)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "repro_torch.paper.run", "--full"], cwd=ROOT, env=env, check=True,
+                   timeout=3000)
+    print(f"[paper-full] python -m repro_torch.paper.run --full took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(card)
+    return 0
+
+
 def row_json(sig, t):
     return {"shape": repr(sig), "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
@@ -4638,6 +4866,10 @@ def main(argv) -> int:
         return drivers_only(torch)
     if "--options" in argv:
         return options_only(torch)
+    if "--paper" in argv:
+        return paper_only(torch)
+    if "--paper-full" in argv:
+        return paper_full(torch)
 
     # ---------------------------------------------------------- phase 1
     card = smi()
@@ -4896,6 +5128,16 @@ def main(argv) -> int:
     for r in report:
         if r["name"] in ROUND_KERNELS:
             r["options_launches"] = opts["launches"][r["name"]]
+
+    # ------------------------------------------------- phase 21: the paper's drivers
+    gc.collect()
+    torch.cuda.empty_cache()
+    pap = paper_phase(torch, np, ops, ref, cs, sa)
+    for r in report:
+        if r["name"] in ROUND_KERNELS:
+            r["paper_launches"] = pap["launches"][r["name"]]
+            r["paper_launches_by_driver"] = {k: v[r["name"]] for k, v in pap["by_driver"].items()}
+            r["max_abs_err"] = max(r["max_abs_err"], pap["worst"][r["name"]])
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps(result))

@@ -23,8 +23,9 @@ row from its own model. Host draws keep the reference's order exactly: a
 round's batches are all drawn first, client by client (IFCA: the 1-step
 evaluation batch, then the training batch), and trained afterwards. The
 key the reference hands ``local_train`` is never read (no DP here), so
-none is made. ``_agglomerative`` is a verbatim numpy copy: host time, the
-reference's O(n^3) linkage.
+none is made. ``_agglomerative`` merges the reference's pairs in the
+reference's order with its own pair means (numpy on the host), keeping
+them across merges instead of recomputing every pair each merge.
 """
 from __future__ import annotations
 
@@ -85,15 +86,25 @@ def _agglomerative(x: np.ndarray, k: int, max_linkage: int = 250) -> np.ndarray:
     xn = x / (np.linalg.norm(x, axis=1, keepdims=True) + 1e-9)
     sim = xn @ xn.T
     clusters: List[List[int]] = [[i] for i in range(n)]
+    # link[i, j] (i < j) is the reference's np.mean(sim[ix_(clusters[i],
+    # clusters[j])]), kept across merges: a merge recomputes only the merged
+    # cluster's pairs, each with the same call on the same member lists in
+    # the same orientation, so every value is the reference's bit for bit.
+    # The first maximum in row-major order is the pair the reference's
+    # (i, j) scan with a strict ">" keeps.
+    link = np.where(np.triu(np.ones((n, n), bool), 1), sim, -np.inf)
     while len(clusters) > k:
-        best, bi, bj = -np.inf, 0, 1
-        for i in range(len(clusters)):
-            for j in range(i + 1, len(clusters)):
-                s = np.mean(sim[np.ix_(clusters[i], clusters[j])])
-                if s > best:
-                    best, bi, bj = s, i, j
+        bi, bj = divmod(int(np.argmax(link)), len(clusters))
+        if not link[bi, bj] > -np.inf:
+            bi, bj = 0, 1
         clusters[bi] = clusters[bi] + clusters[bj]
         del clusters[bj]
+        link = np.delete(np.delete(link, bj, axis=0), bj, axis=1)
+        for c in range(len(clusters)):
+            if c < bi:
+                link[c, bi] = np.mean(sim[np.ix_(clusters[c], clusters[bi])])
+            elif c > bi:
+                link[bi, c] = np.mean(sim[np.ix_(clusters[bi], clusters[c])])
     out = np.zeros(n, np.int32)
     for ci, members in enumerate(clusters):
         out[members] = ci

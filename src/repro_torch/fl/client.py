@@ -59,6 +59,6 @@ def local_train(
                 raise ValueError("dp_sigma > 0 needs per-row noise keys")
             keys = rnd.split(noise_keys, len(names))  # (R, n_leaves, 2)
             for j, k in enumerate(names):
-                noise = rnd.normal(keys[:, j], delta[k].shape[1:])
+                noise = rnd.xla_normal(keys[:, j], delta[k].shape[1:])
                 delta[k] = delta[k] + dp_sigma * dp_clip * noise
     return delta, torch.stack(losses, 1).mean(1)

@@ -36,6 +36,9 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 # bytes each at the peak of a normal draw); a sketch block of 2**16 rows x
 # 256 is one piece
 CHUNK = 1 << 24
+# values erfinv transforms at a time (its float64 steps hold ~60 bytes a
+# value), so an ``xla_normal`` draw's peak stays near the threefry words' own
+_ERFINV_PIECE = 1 << 22
 
 
 class Shard(NamedTuple):
@@ -289,6 +292,98 @@ def rademacher_rows(k, block: int, rows: torch.Tensor, d: int, dtype=torch.float
     return (1 - 2 * ((b1 ^ b2) >> 31)).to(dtype)
 
 
+# XLA's float32 erf_inv (Giles' single-precision polynomial in
+# w = -log1p(-x^2), split at w = 5), with the log1p and log that XLA emits on
+# the CPU (Cephes' rational log1p below sqrt(2) - 1, else log(1 + x);
+# Cephes' logf) and the multiply-adds it fuses. torch.erfinv is another
+# approximation: on two thirds of the uniforms it differs from XLA's by up
+# to 1.5e-5.
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+                 -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+                 -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+              2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+              3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOGF_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+           -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+
+
+def _f32(c: float) -> float:
+    return float(np.float32(c))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a*b + c rounded once (a float64 product of float32s is exact;
+    the sum is rounded to float64, then to float32)."""
+    t = a.double().mul_(b if isinstance(b, float) else b.double())
+    return t.add_(c if isinstance(c, float) else c.double()).float()
+
+
+def _poly(x: torch.Tensor, coeffs) -> torch.Tensor:
+    p = torch.full_like(x, _f32(coeffs[0]))
+    for c in coeffs[1:]:
+        p = _fma(p, x, _f32(c))
+    return p
+
+
+def _logf(v: torch.Tensor) -> torch.Tensor:
+    """Cephes' logf for v > 0 (normal floats), as XLA emits it."""
+    bits = v.view(torch.int32)
+    e = (bits >> 23).float().sub_(126.0)
+    x = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    small = x < _f32(0.707106781186547524)
+    e.sub_(small.float())
+    x = (x - 1.0).add_(torch.where(small, x, 0.0))
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOGF_P
+    y = _fma(_fma(x, _f32(p[0]), _f32(p[1])), x, _f32(p[2]))
+    y1 = _fma(_fma(x, _f32(p[3]), _f32(p[4])), x, _f32(p[5]))
+    y2 = _fma(_fma(x, _f32(p[6]), _f32(p[7])), x, _f32(p[8]))
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, e * _f32(-2.12194440e-4))
+    x = (x - x2 * 0.5).add_(y)
+    return x.add_(e * 0.693359375)
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's log1p for x > -1."""
+    x2 = x * x
+    s = _poly(x, _LOG1P_NUM).div_(_poly(x, _LOG1P_DEN))
+    s = _fma(x2, -0.5, (x * x2).mul_(s)).add_(x)
+    return torch.where(x.abs() < _f32(0.41421356237309504880), s, _logf(x + 1.0))
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv on (-1, 1) as XLA computes it on the CPU
+    (``jax.lax.erf_inv``): bit-equal to it but for 1 ulp on ~2e-5 of the
+    uniforms (|x| > 0.9966, where XLA's float32 sqrt is not correctly
+    rounded). Every step is IEEE arithmetic, so the card and the CPU agree
+    bit for bit. Made ``_ERFINV_PIECE`` values at a time (its float64 steps
+    hold ~60 bytes a value)."""
+    if x.numel() <= _ERFINV_PIECE:
+        return _erfinv(x)
+    out = torch.empty_like(x)
+    src, dst = x.reshape(-1), out.view(-1)
+    for i in range(0, src.numel(), _ERFINV_PIECE):
+        dst[i:i + _ERFINV_PIECE] = _erfinv(src[i:i + _ERFINV_PIECE])
+    return out
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    w = _log1p(x * -x).neg_()
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    c = [torch.where(lt, _f32(a), _f32(b)) for a, b in zip(_ERFINV_W_LT5, _ERFINV_W_GE5)]
+    p = c[0]
+    for ci in c[1:]:
+        p = _fma(p, w, ci)
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
 def normal(k, shape, *, scale: Optional[float] = None, dtype=torch.float32, shard: Optional[Shard] = None,
            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Standard normals (``jax.random.normal``: ``sqrt(2)·erfinv`` of a
@@ -303,6 +398,22 @@ def normal(k, shape, *, scale: Optional[float] = None, dtype=torch.float32, shar
         return out if scale is None else out * scale
 
     return _draw(k, shape, fn, dtype, shard, out)
+
+
+def xla_normal(k, shape, *, dtype=torch.float32) -> torch.Tensor:
+    """Standard normals bit-equal to ``jax.random.normal`` on the CPU but for
+    1-2 ulp on ~2e-5 of the tails: ``normal``'s uniforms through XLA's
+    erf_inv (``erfinv``). Local DP's noise draws with it: sigma x clip of
+    noise lands on every element of every delta every round, and torch's
+    erfinv there carried a 12-round run 2.8e-5 from the reference's (its own
+    float32-vs-float64 gap: 2.5e-7). ``normal`` keeps torch's erfinv (the
+    inits' one draw, a few ulp from XLA's; the XLA path's float64 steps
+    make a draw ~3x slower)."""
+    lo = torch.as_tensor(float(np.nextafter(np.float32(-1.0), np.float32(0.0))), dtype=torch.float32,
+                         device=k.device)
+    hi = torch.as_tensor(1.0, dtype=torch.float32, device=k.device)
+    sqrt2 = np.float32(np.sqrt(2)).item()
+    return _draw(k, shape, lambda b: sqrt2 * erfinv(_uniform_of(b, lo, hi)), dtype)
 
 
 def truncated_normal(k, lower: float, upper: float, shape, *, scale: Optional[float] = None,

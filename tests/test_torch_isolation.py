@@ -29,6 +29,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.launch.specs, repro_torch.launch.dryrun, repro_torch.utils.hlo, repro_torch.utils.tree\n"
         "import repro_torch.launch.profile, repro_torch.utils.spmd\n"
         "import repro_torch.scale, repro_torch.data.plane, repro_torch.fl.baselines\n"
+        "import repro_torch.paper, repro_torch.paper.common, repro_torch.paper.table3_tta\n"
+        "import repro_torch.paper.table4_bias, repro_torch.paper.table5_clustered_fl\n"
+        "import repro_torch.paper.fig10_algorithms, repro_torch.paper.fig12_correlation\n"
+        "import repro_torch.paper.fig13_sensitivity, repro_torch.paper.fig14_resilience\n"
+        "import repro_torch.paper.roofline, repro_torch.paper.run\n"
         f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"
         "import port_quickstart, port_robust_fl, port_serve_cohorts, port_train_lm_federated\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -47,10 +52,17 @@ def test_no_source_file_imports_jax_or_repro():
                                           "port_train_lm_federated.py"]
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 10
+    # the walk reaches every subpackage, the paper's drivers included
+    paper = {f.name for f in files if f.parent == PORT / "paper"}
+    assert paper == {"__init__.py", "common.py", "table3_tta.py", "table4_bias.py", "table5_clustered_fl.py",
+                     "fig10_algorithms.py", "fig12_correlation.py", "fig13_sensitivity.py",
+                     "fig14_resilience.py", "roofline.py", "run.py"}
     offenders = [str(f.relative_to(ROOT)) for f in files if FORBIDDEN.search(f.read_text())]
     assert offenders == []
     assert FORBIDDEN.search("from repro.core import x") and FORBIDDEN.search("import jax.numpy")
     assert not FORBIDDEN.search("from repro_torch.core import x")
+    # nor the reference's drivers
+    assert not any(re.search(r"^\s*(import|from)\s+benchmarks\b", f.read_text(), re.MULTILINE) for f in files)
 
 
 def test_engine_without_device_raises_on_a_cpu_only_host(monkeypatch):
@@ -64,6 +76,23 @@ def test_engine_without_device_raises_on_a_cpu_only_host(monkeypatch):
     # asking for the CPU explicitly is the supported way to run without a card
     eng = AuxoEngine(MLPTask(), pop, FLConfig(rounds=1), AuxoConfig(), device="cpu")
     assert eng.pipeline.bank.params["w0"].device.type == "cpu"
+
+
+def test_paper_drivers_without_device_raise_on_a_cpu_only_host():
+    """``python -m repro_torch.paper.run`` runs on the card unless
+    ``--device cpu`` is asked for: without it a host without CUDA raises
+    (this container has none), as the engine does; ``kernels_micro`` is not
+    one of the drivers and exits non-zero."""
+    assert not torch.cuda.is_available()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for args, want in ((["--only", "table3_tta"], "CUDA"), (["--only", "kernels_micro"], "performance benchmark")):
+        out = subprocess.run([sys.executable, "-m", "repro_torch.paper.run", *args], env=env, capture_output=True,
+                             text=True, timeout=300)
+        assert out.returncode != 0 and want in out.stderr, out.stderr[-2000:]
+    from repro_torch.paper import table3_tta
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        table3_tta.run(2, scenarios=["reddit-like"])
 
 
 def test_core_entry_points_without_device_raise_on_a_cpu_only_host(monkeypatch):

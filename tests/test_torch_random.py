@@ -4,7 +4,8 @@ Raw bits, split, fold_in, uniform and rademacher must be BIT-equal: the
 port reproduces the JAX package's draws (model init, sketch projections,
 k-means seeding, training keys) draw for draw. normal / truncated_normal
 go through erfinv, whose float32 implementations differ by a few ulp
-between XLA and torch; categorical must pick the same indices.
+between XLA and torch (xla_normal, local DP's noise, goes through XLA's
+erf_inv copied step for step); categorical must pick the same indices.
 """
 import jax
 import jax.numpy as jnp
@@ -99,6 +100,30 @@ def test_normal_and_truncated_normal_within_ulps(seed):
     got = trnd.truncated_normal(tk, -2.0, 2.0, shape).numpy()
     np.testing.assert_allclose(got, t, rtol=4e-6, atol=4e-6)
     assert got.min() > -2.0 and got.max() < 2.0
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+def test_xla_normal_is_jax_normal_bits(seed):
+    """Local DP adds sigma x clip x normal noise to every element of every
+    delta each round: with torch's erfinv two thirds of the draws differed
+    from XLA's (by up to 1.5e-5), and a 12-round DP run drifted 2.8e-5 from
+    the reference's (tests/test_torch_paper_options.py, dp_sigma0.6)."""
+    jk, tk = jax.random.key(seed), trnd.key(seed)
+    shape = (256, 512)
+    n = np.asarray(jax.random.normal(jk, shape))
+    got = trnd.xla_normal(tk, shape).numpy()
+    off = got != n
+    # XLA's float32 sqrt is not correctly rounded: |u| > 0.9966 only, one
+    # ulp of erfinv there (two after the sqrt(2) scale)
+    assert off.mean() <= 1e-4
+    np.testing.assert_array_max_ulp(got, n, maxulp=2)
+    assert np.all(np.abs(n[off]) > 2.0)
+    # per-row keys, as local_train draws them
+    keys = jax.random.split(jk, 3)
+    want = np.stack([np.asarray(jax.random.normal(k, (4, 5))) for k in keys])
+    np.testing.assert_array_max_ulp(trnd.xla_normal(trnd.split(tk, 3), (4, 5)).numpy(), want, maxulp=2)
+    u = np.asarray(jax.random.uniform(jk, (1 << 20,), jnp.float32, -0.9966, 0.9966))
+    np.testing.assert_array_equal(trnd.erfinv(torch.from_numpy(u)).numpy(), np.asarray(jax.lax.erf_inv(u)))
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -10,6 +10,10 @@ the class of the same name). Each of its parameters (positional, keyword
 or ``*``/``**``) must be one of the counterpart's. The exemptions below are
 a fixed list, each with its reason, and each must still be a gap: a gap
 that closes takes its entry out.
+
+The paper's drivers are walked the same way: each of ``PAPER_DRIVERS`` in
+``benchmarks/`` against its module in ``src/repro_torch/paper/``, where
+the only argument the port may add is ``device``.
 """
 import ast
 import functools
@@ -17,7 +21,10 @@ import pathlib
 
 import pytest
 
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+PAPER_DRIVERS = ("common", "table3_tta", "table4_bias", "table5_clustered_fl", "fig10_algorithms",
+                 "fig12_correlation", "fig13_sensitivity", "fig14_resilience", "roofline", "run")
 _PALLAS = "a Pallas kernel body's tiling or interpret switch: the CUDA kernel plans its own blocks"
 _HLO = "parses XLA's HLO text, which a PyTorch step does not produce (the port counts ops instead)"
 _JIT = "a jax.jit argument: the port's steps run eagerly, placed by their inputs"
@@ -55,9 +62,12 @@ EXEMPT = {
 def _functions(pkg: str):
     """{(module path, qualified name): FunctionDef} of a package's public
     functions and public classes' methods."""
+    return _functions_of({f.relative_to(SRC / pkg).as_posix(): f for f in sorted((SRC / pkg).rglob("*.py"))})
+
+
+def _functions_of(files: dict):
     out = {}
-    for f in sorted((SRC / pkg).rglob("*.py")):
-        rel = f.relative_to(SRC / pkg).as_posix()
+    for rel, f in files.items():
         for node in ast.parse(f.read_text()).body:
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and not node.name.startswith("_"):
                 out[(rel, node.name)] = node
@@ -88,6 +98,28 @@ def _gaps() -> frozenset:
         have = set(_params(port[(rel, name)]))
         gaps.update((rel, name, p) for p in _params(fn) if p not in have)
     return frozenset(gaps)
+
+
+def _paper_pairs():
+    ref = _functions_of({f"{m}.py": ROOT / "benchmarks" / f"{m}.py" for m in PAPER_DRIVERS})
+    port = _functions_of({f"{m}.py": SRC / "repro_torch" / "paper" / f"{m}.py" for m in PAPER_DRIVERS})
+    return ref, port
+
+
+def test_every_paper_driver_function_and_argument_has_its_counterpart():
+    ref, port = _paper_pairs()
+    assert {rel for rel, _ in ref} == {rel for rel, _ in port} == {f"{m}.py" for m in PAPER_DRIVERS}
+    assert ("common.py", "tta_speedup") in ref and ("run.py", "main") in ref and ("roofline.py", "render") in ref
+    missing = sorted(key for key in ref if key not in port)
+    assert not missing, f"the port lacks: {missing}"
+    for key, fn in ref.items():
+        want, have = _params(fn), _params(port[key])
+        assert [p for p in want if p not in have] == [], key
+        assert [p for p in have if p not in want] in ([], ["device"]), key
+        # the reference's arguments keep their order; device is keyword-only
+        assert [p for p in have if p != "device"] == want, key
+        if "device" in have:
+            assert "device" in [a.arg for a in port[key].args.kwonlyargs], key
 
 
 def test_the_walk_sees_both_packages():

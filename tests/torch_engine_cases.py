@@ -37,6 +37,30 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module")
+def jax_compile_cache(tmp_path_factory):
+    """JAX's persistent compilation cache, in a directory of this test run,
+    while a module's tests run (modules that build many reference engines
+    import this fixture). Every reference engine jits its own closures, so
+    each engine compiled its round step, probes and clusterers anew (~4-10
+    s an engine); with the cache, equal programs compile once. The previous
+    settings come back afterwards."""
+    import jax
+    from jax._src import compilation_cache
+
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+            "jax_persistent_cache_min_entry_size_bytes")
+    old = {k: getattr(jax.config, k) for k in keys}
+    jax.config.update("jax_compilation_cache_dir", str(tmp_path_factory.mktemp("jax_cache")))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    compilation_cache.reset_cache()
+    yield
+    for k, v in old.items():
+        jax.config.update(k, v)
+    compilation_cache.reset_cache()
+
+
 MODES_POP = dict(n_clients=300, n_groups=4, group_sep=0.0, dirichlet=3.0,
                  label_conflict=1.0, seed=5)
 MODES_FL = dict(rounds=30, participants_per_round=60, eval_every=29,
