@@ -4709,11 +4709,9 @@ def paper_phase(torch, np, ops, ref, cs, sa) -> dict:
     for name, d in drivers.items():
         for row in d["rows"]:
             print(f"[paper] 21a {name} {json.dumps(row)}", flush=True)
-        for n, (obj, hist, s) in d["baselines"].items():
-            agglo = getattr(obj, "agglomerative_s", None)
+        for n, (_, hist, s) in d["baselines"].items():
             print(f"[paper] 21a {name} {n}: acc_mean {hist[-1]['acc_mean']:.4f}, resource "
-                  f"{hist[-1]['resource']:.0f}, comm {hist[-1].get('comm', '-')}, wall {s:.3f} s"
-                  + ("" if agglo is None else f" (of it _agglomerative {agglo:.3f} s of host time)"), flush=True)
+                  f"{hist[-1]['resource']:.0f}, comm {hist[-1].get('comm', '-')}, wall {s:.3f} s", flush=True)
     print(f"[paper] 21a Auxo runs that partition: n_cohorts {parted}", flush=True)
     print(f"[paper] 21b Table 3 on {PAPER_SMALL_CLIENTS} clients, card == CPU discrete fields, floats "
           f"max |card - CPU| {small['gap']:.3e} (rtol 1e-4, atol 1e-5): {json.dumps(small['rows'])}", flush=True)

@@ -32,7 +32,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import torch
 
 from repro_torch import random as rnd
-from repro_torch.utils import spmd
+from repro_torch.utils import spmd, trace
 from repro_torch.utils.tree import leaves_with_path, tree_map
 
 CACHE_FLOATS = 1 << 24  # a leaf's matrices are cached up to this many floats (64 MB)
@@ -52,25 +52,30 @@ def n_blocks(n: int) -> int:
 
 def projection_blocks(n: int, d_sketch: int, seed: int, device) -> Iterable[torch.Tensor]:
     """The (block, d_sketch) Rademacher matrices of a flat leaf of n values,
-    drawn one at a time."""
+    drawn one at a time, each draw a ``sketch.draw`` span."""
     block = _block_size(n)
     key = rnd.key(seed, device=device)
-    return (rnd.rademacher(rnd.fold_in(key, i), (block, d_sketch)) for i in range(n_blocks(n)))
+    for i in range(n_blocks(n)):
+        with trace.span("sketch.draw"):
+            r = rnd.rademacher(rnd.fold_in(key, i), (block, d_sketch))
+        yield r
 
 
 def leaf_projection(flat: torch.Tensor, blocks: Iterable[torch.Tensor]) -> torch.Tensor:
     """Project rows of flat leaves (R, n) to (R, d_sketch): blocked, scaled
     by 1/sqrt(n), summing block products in order like the JAX scan. The
-    last block is padded with zeros, as the JAX package pads the leaf."""
+    last block is padded with zeros, as the JAX package pads the leaf. Each
+    block's product is a ``sketch.project`` span."""
     R, n = flat.shape
     out = None
     lo = 0
     for r in blocks:
-        part = flat[:, lo:lo + r.shape[0]].float()
-        if part.shape[1] < r.shape[0]:
-            part = torch.nn.functional.pad(part, (0, r.shape[0] - part.shape[1]))
-        prod = part @ r
-        out = prod if out is None else out + prod
+        with trace.span("sketch.project"):
+            part = flat[:, lo:lo + r.shape[0]].float()
+            if part.shape[1] < r.shape[0]:
+                part = torch.nn.functional.pad(part, (0, r.shape[0] - part.shape[1]))
+            prod = part @ r
+            out = prod if out is None else out + prod
         lo += r.shape[0]
     return out / math.sqrt(max(n, 1))
 
@@ -81,11 +86,14 @@ ROW_CHUNK = 1 << 16  # rows of a split leaf's projection drawn at a time
 def row_blocks(index: torch.Tensor, n: int, d_sketch: int, seed: int) -> Iterable[Tuple[int, torch.Tensor]]:
     """(start, (len, d_sketch) matrix) pieces of the projection rows at the
     global flat indices ``index`` (a card's shard of a leaf of n values),
-    drawn ``ROW_CHUNK`` rows at a time (``random.rademacher_rows``)."""
+    drawn ``ROW_CHUNK`` rows at a time (``random.rademacher_rows``), each
+    draw a ``sketch.draw`` span."""
     block = _block_size(n)
     key = rnd.key(seed, device=index.device)
     for lo in range(0, index.shape[0], ROW_CHUNK):
-        yield lo, rnd.rademacher_rows(key, block, index[lo:lo + ROW_CHUNK], d_sketch)
+        with trace.span("sketch.draw"):
+            r = rnd.rademacher_rows(key, block, index[lo:lo + ROW_CHUNK], d_sketch)
+        yield lo, r
 
 
 def shard_projection(flat: torch.Tensor, index: torch.Tensor, n: int, d_sketch: int, seed: int) -> torch.Tensor:
@@ -94,8 +102,9 @@ def shard_projection(flat: torch.Tensor, index: torch.Tensor, n: int, d_sketch: 
     sum over the shards being the whole leaf's projection."""
     out = None
     for lo, r in row_blocks(index, n, d_sketch, seed):
-        prod = flat[:, lo:lo + r.shape[0]].float() @ r
-        out = prod if out is None else out + prod
+        with trace.span("sketch.project"):
+            prod = flat[:, lo:lo + r.shape[0]].float() @ r
+            out = prod if out is None else out + prod
     return out / math.sqrt(max(n, 1))
 
 
@@ -166,7 +175,12 @@ class GradientSketcher:
 
     def batch(self, updates) -> torch.Tensor:
         """updates: a (flat or nested) parameter dict whose leaves lead with
-        a row axis (R, ...) -> (R, d_sketch) float32 sketches, one per row."""
+        a row axis (R, ...) -> (R, d_sketch) float32 sketches, one per row.
+        The call is a ``sketch`` span."""
+        with trace.span("sketch"):
+            return self._batch(updates)
+
+    def _batch(self, updates) -> torch.Tensor:
         if self.strategy == "tensor_norms":
             return self._tensor_norms(self._selected(updates))
         acc = part = None

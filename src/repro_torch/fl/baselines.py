@@ -29,7 +29,6 @@ them across merges instead of recomputing every pair each merge.
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -122,7 +121,6 @@ class _Base:
     FederatedClassification wraps into a MaterializedDataPlane). Runs on
     ``device`` (default "cuda"; raises without a card). ``init_params``
     (numpy) overrides the seeded init: one dict, or for IFCA a list of k.
-    ``agglomerative_s`` sums the host seconds of ``_agglomerative``.
     """
 
     def __init__(self, task, pop, fl: FLConfig, k: int, *, device=None, init_params=None):
@@ -139,7 +137,6 @@ class _Base:
         self.speeds = DeviceSpeeds(self.pop.n_clients, sigma=fl.speed_sigma, seed=fl.seed)
         self.history: List[Dict[str, Any]] = []
         self.server_opt = make_server_opt(fl.algorithm, lr=fl.server_lr)
-        self.agglomerative_s = 0.0
 
     def _init(self, i: Optional[int] = None):
         """The seeded init ``key(seed)`` (``fold_in(key, i)`` for IFCA's
@@ -199,12 +196,6 @@ class _Base:
         )
         agg = tree_map(lambda a: sel(a).mean(0), deltas)
         return self.server_opt.apply(params, opt_state, agg)
-
-    def _agglomerate(self, x: np.ndarray, k: int) -> np.ndarray:
-        t0 = time.perf_counter()
-        out = _agglomerative(x, k)
-        self.agglomerative_s += time.perf_counter() - t0
-        return out
 
     def _eval(self, r: int, assignment: np.ndarray, models: List[Any]) -> Dict[str, Any]:
         per_client = np.zeros(self.pop.n_clients)
@@ -306,7 +297,7 @@ class FLHC(_Base):
         X = _rows_flat(deltas)
         del deltas
         X = X - X.mean(0)
-        assignment = self._agglomerate(X[:, :256], self.k)
+        assignment = _agglomerative(X[:, :256], self.k)
 
         models = [_copy(params) for _ in range(self.k)]
         opts = [self.server_opt.init(m) for m in models]
@@ -361,7 +352,7 @@ class CFL(_Base):
                     and r > 3
                 ):
                     Xc = X - X.mean(0)
-                    lab = self._agglomerate(Xc, 2)
+                    lab = _agglomerative(Xc, 2)
                     a = [m for m, l in zip(members, lab) if l == 0]
                     b = [m for m, l in zip(members, lab) if l == 1]
                     if len(a) > 10 and len(b) > 10:

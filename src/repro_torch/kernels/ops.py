@@ -33,7 +33,7 @@ from repro_torch.kernels import cosine_sim as _cs
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_aggregate as _sa
-from repro_torch.utils import spmd
+from repro_torch.utils import spmd, trace
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -67,7 +67,19 @@ def segment_aggregate(
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """data: (P, D), ids: (P,) -> (K, D) weighted segment sums; or data
-    (C, P, D) with ids (and weights) (C, P) -> (C, K, D) in one launch."""
+    (C, P, D) with ids (and weights) (C, P) -> (C, K, D) in one launch.
+    The call is a ``kernels.segment_aggregate`` span whose meta holds the
+    call's (C, P, D) ``shape``, the data's and the ids' itemsizes, whether
+    it is ``weighted`` and ``k``."""
+    if not trace.on():
+        return _segment_aggregate(data, segment_ids, num_segments, weights)
+    shape = tuple(data.shape) if data.dim() == 3 else (1,) + tuple(data.shape)
+    with trace.span("kernels.segment_aggregate", shape=shape, data_itemsize=data.element_size(),
+                    ids_itemsize=segment_ids.element_size(), weighted=weights is not None, k=num_segments):
+        return _segment_aggregate(data, segment_ids, num_segments, weights)
+
+
+def _segment_aggregate(data, segment_ids, num_segments, weights):
     if spmd.any_dtensor(data, segment_ids, weights):
         return _segment_aggregate_spmd(data, segment_ids, num_segments, weights)
     if _route(data) == "cpu":

@@ -48,7 +48,7 @@ from repro_torch.core.sketch import GradientSketcher
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer
 from repro_torch.models.zoo import Model
-from repro_torch.utils import spmd
+from repro_torch.utils import spmd, trace
 from repro_torch.utils.tree import leaves, tree_map
 
 
@@ -203,8 +203,11 @@ def _grads(loss_of: Callable, params, cfg):
 
     tree = tree_map(leaf, _per_layer(params, cfg))
     with torch.enable_grad():
-        loss, aux = loss_of(tree)
-        grads = list(torch.autograd.grad(loss, views))
+        with trace.span("train.forward"):
+            loss, aux = loss_of(tree)
+        # checkpointed layers run their forward again in here
+        with trace.span("train.backward"):
+            grads = list(torch.autograd.grad(loss, views))
     # DTensor gradients land in their parameters' layout (pending sums reduced)
     grads = [spmd.redistribute(g, v.placements) if spmd.is_dtensor(g) else g for g, v in zip(grads, views)]
     return loss.detach(), aux, [v.detach() for v in views], grads
@@ -303,22 +306,27 @@ def make_train_step(model: Model, step_cfg: StepConfig) -> Callable:
         opt_state, clust_state, metrics); params and opt_state are the given
         trees, updated in place. On DTensors each card trains the clients of
         its data shard (``spmd.Rows``) with the model split over ``model``."""
+        with trace.span("train.round"):
+            return fl_round(params, opt_state, clust_state, batch)
+
+    def fl_round(params, opt_state, clust_state, batch):
         rows = spmd.Rows.of(batch["tokens"])
         mine = params if rows is None else tree_map(rows.params, params)
         local = batch if rows is None else {k: rows.local(a) for k, a in batch.items()}
         C = local["tokens"].shape[0]
-        deltas = tree_map(lambda a: spmd.rows_like(a, C), mine)
-        losses = []
-        for c in range(C):
-            work = tree_map(lambda d: d[c], deltas)
-            with torch.no_grad():
-                for w, p in zip(leaves(work), leaves(mine)):
-                    w.copy_(p)
-            losses.append(client_update(work, mine, {k: a[c] for k, a in local.items()}))
-        del work  # its views would keep every delta leaf alive below
-        losses = torch.stack(losses)
-        if rows is not None:  # every card's clients, one tensor split over the data axes
-            deltas, losses = tree_map(rows.full, deltas), rows.full(losses)
+        with trace.span("train.local"):
+            deltas = tree_map(lambda a: spmd.rows_like(a, C), mine)
+            losses = []
+            for c in range(C):
+                work = tree_map(lambda d: d[c], deltas)
+                with torch.no_grad():
+                    for w, p in zip(leaves(work), leaves(mine)):
+                        w.copy_(p)
+                losses.append(client_update(work, mine, {k: a[c] for k, a in local.items()}))
+            del work  # its views would keep every delta leaf alive below
+            losses = torch.stack(losses)
+            if rows is not None:  # every card's clients, one tensor split over the data axes
+                deltas, losses = tree_map(rows.full, deltas), rows.full(losses)
         C = losses.shape[0]
 
         with torch.no_grad():

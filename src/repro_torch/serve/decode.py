@@ -41,6 +41,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.transformer import embed_tokens, lm_logits
 from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_map
 
 ATTEND = {
@@ -80,12 +81,13 @@ def make_decode_step(cfg, attend: Callable) -> Callable:
             # in place: this step's K/V land at each row's own position
             kl[rows, :, index] = k[:, :, 0].to(kl.dtype)
             vl[rows, :, index] = v[:, :, 0].to(vl.dtype)
-            a = attend(
-                q[:, :, 0].reshape(R * N, cfg.n_heads, cfg.hd),
-                kl.reshape(R * N, S, cfg.n_kv_heads, cfg.hd),
-                vl.reshape(R * N, S, cfg.n_kv_heads, cfg.hd),
-                length,
-            )  # (R·N, H, hd)
+            with trace.span("decode.attention"):
+                a = attend(
+                    q[:, :, 0].reshape(R * N, cfg.n_heads, cfg.hd),
+                    kl.reshape(R * N, S, cfg.n_kv_heads, cfg.hd),
+                    vl.reshape(R * N, S, cfg.n_kv_heads, cfg.hd),
+                    length,
+                )  # (R·N, H, hd)
             x = x + attention_out(p["attn"], a.reshape(R, N, 1, cfg.n_heads, cfg.hd))
             x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -166,14 +168,16 @@ class CohortDecoder:
         return ((slots[:, None] * self.lanes + lane) % self.cfg.vocab).astype(np.int32)
 
     def _gather(self, slots) -> dict:
-        """The rows' params: block-stack leaves (L, R, ...), the rest (R, ...)."""
-        bank = self.params_fn()
-        blocks = tree_map(
-            lambda a: torch.stack([a[s] for s in slots], dim=1), bank["backbone"]["blocks"]
-        )
-        idx = torch.as_tensor(slots, device=bank["embed"].device)
-        rest = {k: tree_map(lambda a: a[idx], v) for k, v in bank.items() if k != "backbone"}
-        return {"backbone": {"blocks": blocks}, **rest}
+        """The rows' params: block-stack leaves (L, R, ...), the rest (R, ...);
+        a ``decode.gather`` span."""
+        with trace.span("decode.gather"):
+            bank = self.params_fn()
+            blocks = tree_map(
+                lambda a: torch.stack([a[s] for s in slots], dim=1), bank["backbone"]["blocks"]
+            )
+            idx = torch.as_tensor(slots, device=bank["embed"].device)
+            rest = {k: tree_map(lambda a: a[idx], v) for k, v in bank.items() if k != "backbone"}
+            return {"backbone": {"blocks": blocks}, **rest}
 
     # -------------------------------------------------------------- decode
     @torch.no_grad()
@@ -183,12 +187,19 @@ class CohortDecoder:
         Returns (tokens (live_rows, lanes, n_steps) int32,
                  last-step logits (live_rows, lanes, V) float32).
         One fleet step per position for the WHOLE fleet; the tokens stay on
-        the device until the call ends.
+        the device until the call ends. After the cache's sync the call is a
+        ``decode.call`` span (meta: live ``rows``, ``lanes``, ``steps``) and
+        each fleet step a ``decode.step`` span (meta: every cache row's
+        ``positions`` as the host counts them).
         """
         self.sync()
         live = self.cache.slots
         if not live:
             raise RuntimeError("no live cohorts to decode")
+        with trace.span("decode.call", rows=len(live), lanes=self.lanes, steps=int(n_steps)):
+            return self._decode(live, int(n_steps))
+
+    def _decode(self, live, n_steps: int) -> Tuple[np.ndarray, np.ndarray]:
         self.cache.ensure(n_steps + 1)
         r_pad = self.cache.rows
         # pad rows re-use row 0's slot params; their lanes are discarded
@@ -199,15 +210,17 @@ class CohortDecoder:
         tok[: len(live)] = self.tokens
         tok = torch.from_numpy(tok).to(self.device)
         params = self._gather(slots_p)
-        index = torch.from_numpy(self.cache.index.astype(np.int64)).to(self.device)
+        at = self.cache.index.astype(np.int64)
+        index = torch.from_numpy(at).to(self.device)
         out = []
         logits = None
-        for _ in range(int(n_steps)):
-            logits = self._step(params, tok, self.cache.k, self.cache.v, index)
-            self.decode_dispatches += 1
-            tok = torch.argmax(logits, dim=-1)
-            index = index + 1
-            out.append(tok)
+        for i in range(n_steps):
+            with (trace.span("decode.step", positions=(at + i).tolist()) if trace.on() else trace.OFF):
+                logits = self._step(params, tok, self.cache.k, self.cache.v, index)
+                self.decode_dispatches += 1
+                tok = torch.argmax(logits, dim=-1)
+                index = index + 1
+                out.append(tok)
         self.cache.index = index.cpu().numpy().astype(np.int32)
         toks = torch.stack(out, dim=-1).cpu().numpy().astype(np.int32)  # (R, lanes, n_steps)
         self.tokens = toks[: len(live), :, -1]

@@ -132,14 +132,15 @@ def test_ifca_pays_broadcast_cost(runs):
 
 @pytest.mark.parametrize("algo", ["flhc", "flexcfl"])
 def test_hierarchical_full_pass_cost(runs, algo):
-    _, _, th, _, talgo = runs(algo)
+    _, _, th, tseen, talgo = runs(algo)
     assert np.isfinite(th[-1]["acc_mean"])
     fl = talgo.fl
     # resource includes the one-shot FULL population pass
     per_round = fl.participants_per_round * fl.local_steps * fl.batch_size
     full_pass = POP["n_clients"] * fl.local_steps * fl.batch_size
     assert th[-1]["resource"] == fl.rounds * per_round + full_pass
-    assert talgo.agglomerative_s > 0.0
+    # the full pass's agglomerative merge split the population into the k groups
+    assert sorted(np.unique(tseen["assignment"])) == list(range(K))
 
 
 def test_cfl_full_participation(runs):
