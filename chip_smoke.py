@@ -8,6 +8,8 @@
     python3 chip_smoke.py --kernel-timing [--src DIR]  # build + phase 6's fixed
         # rows of the segment and cosine kernels and the LM rows (1, 2, n) -> 1
         # weighted at n = 41.9M and 671M alone, likewise
+    python3 chip_smoke.py --sketch-timing # build + phase 9b alone, then granite's last
+        # block through GradientSketcher twice: its spans and launches
     python3 chip_smoke.py --lm-train      # build + phase 10 alone
     python3 chip_smoke.py --engine-modes  # build + phase 4's run + phase 11 alone
     python3 chip_smoke.py --eval-baselines  # build + phase 4a and 4's runs + phase 12 alone
@@ -33,7 +35,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      segment kernel's row lists), f32 and bf16, with a cohort axis,
      int64 and int32 ids (the segment kernel bit-equal to the plain
      version on a CPU copy, the others at their tolerances); two launches
-     bit-identical at K = 63 and at (8192, 512, 32);
+     bit-identical at K = 63 and at (8192, 512, 32); the sketch projection
+     (one-hot rows give the plain signs exactly, sums within 1e-6, two
+     launches bit-identical);
   4. the main path: ``run_auxo`` on the openimage-like population with the
      paper benchmarks' settings; every kernel must have launched;
   5. determinism: a second run from the same seed is bit-identical;
@@ -54,7 +58,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
   9. timing of decode attention at the main-path call (f32, bf16), at a
      32k cache of 8 sequences (full f32 and bf16, ragged bf16) and at the
      decode_32k batch (128 x 32k, bf16), beside its byte bound, the plain
-     version and ``F.scaled_dot_product_attention``;
+     version and ``F.scaled_dot_product_attention``; (b) the sketch kernel
+     at granite-3-2b's seven last-block leaves (R 2, d 128, each a strided
+     last-block slice): within 1e-6 a row of the plain version, two
+     launches bit-equal, its time a leaf and a round beside its ALU bound
+     and the plain version's;
  10. LM training (``repro_torch.launch.steps``), after phase 9 has freed its
      memory: (a) 3 rounds of ``make_train_step`` on a reduced granite-3-2b on
      the card and on the CPU, equal assignments and close state; (b)
@@ -62,7 +70,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
      of 512 tokens (``synth_corpus``), 3 rounds: s/round, loss, tokens/s,
      the share of the FLOP bound, peak memory, the sketch's and every
      aggregation call's time; every aggregation call on the segment kernel,
-     none on a plain version; (c) 2 ``make_central_train_step`` steps, a
+     the seven large last-block leaves on the sketch kernel (2 launches
+     each a round), none on a plain version; (c) 2 ``make_central_train_step`` steps, a
      prefill of 2 x 512 tokens and 8 served tokens, all finite; then the LM
      path's segment calls held against the plain version and timed;
  11. engine modes (the plain versions raise on CUDA tensors throughout,
@@ -365,6 +374,36 @@ def check_kernels(torch, ops, ref, cs, sa) -> float:
         except (TypeError, ValueError):
             continue
         raise AssertionError("a kernel wrapper accepted inputs it does not take")
+    return worst
+
+
+def check_sketch(torch, ops, ref, sp) -> float:
+    """Phase 3c: the sketch projection against its plain version on the
+    card: one-hot rows (each output one sign) exactly, at a block's edges
+    and a ragged last block; sums of normal rows (R 3 and 17, across the
+    16-row pass, d 128) within 1e-6 a row; two launches bit-identical.
+    Returns the largest relative gap of a row."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n, block, d = 2 * 65536 + 1000, 65536, 128
+    at = torch.tensor([0, 65535, 65536, n - 1], device="cuda")
+    one = torch.zeros(len(at), n, device="cuda")
+    one[torch.arange(len(at)), at] = 1.0
+    if not torch.equal(ops.sketch_project(one, block, d, 5), ref.sketch_project(one, block, d, 5)):
+        raise AssertionError("sketch_project: a one-hot row is not the plain version's signs")
+    worst = 0.0
+    for R in (3, 17):
+        x = torch.randn(R, n, generator=g, device="cuda")
+        before = sp.launches
+        got = ops.sketch_project(x, block, d, 5)
+        if sp.launches != before + -(-R // sp.PASS_ROWS) + 1:
+            raise AssertionError(f"sketch_project R={R}: launches not counted")
+        want = ref.sketch_project(x, block, d, 5)
+        gap = (torch.linalg.vector_norm(got - want, dim=1) / torch.linalg.vector_norm(want, dim=1)).max().item()
+        if gap > 1e-6:
+            raise AssertionError(f"sketch_project R={R}: relative gap {gap:.3e} to the plain version")
+        if not torch.equal(got, ops.sketch_project(x, block, d, 5)):
+            raise AssertionError(f"sketch_project R={R}: two launches differ")
+        worst = max(worst, gap)
     return worst
 
 
@@ -1093,7 +1132,7 @@ def synth_corpus(n_clients, m, seq, vocab, n_groups=2, phrase=64, noise=0.05):
 def forbid_cuda_in_plain(torch, ref):
     """The plain kernel versions raise on a CUDA tensor while this is in
     force (a CUDA tensor must reach the kernels only); returns the undo."""
-    names = ("segment_aggregate", "cosine_similarity", "decode_attention")
+    names = ("segment_aggregate", "cosine_similarity", "decode_attention", "sketch_project")
     origs = {n: getattr(ref, n) for n in names}
 
     def guard(name, fn):
@@ -1171,8 +1210,10 @@ def lm_train_phase(torch):
     steps, a prefill and 8 served tokens."""
     from repro_torch import random as rnd
     from repro_torch.configs import get_config
+    from repro_torch.core import sketch
     from repro_torch.core.sketch import GradientSketcher
     from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.kernels import sketch_project as skp
     from repro_torch.launch import steps
     from repro_torch.models import build_model
     from repro_torch.utils.tree import leaves
@@ -1196,7 +1237,7 @@ def lm_train_phase(torch):
             record(steps.kops, "segment_aggregate",
                    lambda d, i, k, w=None: (tuple(d.shape), int(k), w is not None), agg_log, torch)]
     secs, losses, counts = [], [], []
-    sa.launches = 0
+    sa.launches = skp.launches = 0
     try:
         for _ in range(LM_ROUNDS):
             torch.cuda.synchronize()
@@ -1209,7 +1250,7 @@ def lm_train_phase(torch):
     finally:
         for u in undo:
             u()
-    launches = sa.launches
+    launches, sk_launches = sa.launches, skp.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_leaves = len(leaves(params))
     if not all(math.isfinite(v) for v in losses):
@@ -1221,16 +1262,25 @@ def lm_train_phase(torch):
     if launches != LM_ROUNDS * (2 + n_leaves) or len(agg_log) != launches:
         raise AssertionError(f"lm 10b: {launches} segment kernel launches and {len(agg_log)} "
                              f"calls, want {LM_ROUNDS} x (2 + {n_leaves})")
+    # the last block's leaves too large to keep their matrices: one sketch
+    # kernel call each a round, of one pass over the 2 clients' rows and the
+    # reduction (wq, wk, wv, wo, wg, wu, wd)
+    big = [a[-1].numel() for a in leaves(params["backbone"])
+           if sketch.n_blocks(a[-1].numel()) * sketch._block_size(a[-1].numel()) * sc.d_sketch
+           > sketch.CACHE_FLOATS]
+    if len(big) != 7 or sk_launches != LM_ROUNDS * len(big) * (-(-LM_C // skp.PASS_ROWS) + 1):
+        raise AssertionError(f"lm 10b: {sk_launches} sketch kernel launches for {len(big)} large "
+                             f"leaves, want {LM_ROUNDS} x 7 x 2")
     sk_ms = [a.elapsed_time(b) for _, a, b in sk_log]
     agg = {}
     for sig, a, b in agg_log:
         agg.setdefault(sig, []).append(a.elapsed_time(b))
     tokens = LM_C * LM_M * LM_S
     flops = 8 * n_params * tokens  # forward, backward and the forward recompute
-    # the sketch reads each client's last block once and multiplies it by
-    # (block, 128) matrices it draws (7.8G draws a round, not counted here)
+    # the sketch reads each client's last block once; the kernel makes each
+    # of the large leaves' signs in registers, bound by its ALU instructions
     n_last = sum(a[-1].numel() for a in leaves(params["backbone"])) + cfg.d_model
-    sk_bound = bound(LM_C * n_last * 4, 2 * LM_C * n_last * sc.d_sketch)
+    sk_bound = sketch_alu_bound_ms(torch, sum(big) * sc.d_sketch)
 
     # ------------------------------------------------------------- 10c
     central = steps.make_central_train_step(model, sc, n_clients=4)
@@ -1271,7 +1321,8 @@ def lm_train_phase(torch):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(n_params=n_params, n_layers=cfg.n_layers, init_s=init_s, secs=secs, losses=losses,
-                counts=counts, groups=groups.tolist(), launches=launches, n_leaves=n_leaves,
+                counts=counts, groups=groups.tolist(), launches=launches, sk_launches=sk_launches,
+                n_big=len(big), big_values=sum(big), n_leaves=n_leaves,
                 peak_gb=peak_gb, peak_all_gb=peak_all, tokens=tokens, flops=flops, sk_ms=sk_ms,
                 sk_bound=sk_bound, n_last=n_last, agg=agg, closs=closs, prefill_s=prefill_s,
                 serve_s=serve_s, served=served)
@@ -1353,9 +1404,9 @@ def run_lm_phase(torch, np, ops, ref):
     sk_bytes_ms = LM_C * lm["n_last"] * 4 / HBM_BYTES_PER_S * 1e3
     print(f"[lm-train] 10b sketch per round {[round(x, 3) for x in lm['sk_ms']]} ms against its byte "
           f"bound {sk_bytes_ms:.4f} ms ({LM_C} x {lm['n_last']:,} last-block values read once) and "
-          f"its bound {lm['sk_bound'][0]:.4f} ms ({lm['sk_bound'][1]}: their products with the "
-          f"(block, 128) matrices; the {lm['n_last'] * 128 / 1e9:.2f}G Rademacher draws come on top)",
-          flush=True)
+          f"the sketch kernel's ALU bound {lm['sk_bound']:.4f} ms ({lm['big_values'] * 128 / 1e9:.2f}G signs x "
+          f"{SKETCH_ALU_PER_SIGN} ALU instructions); sketch kernel launches {lm['sk_launches']} = "
+          f"{LM_ROUNDS} rounds x {lm['n_big']} large leaves x 2", flush=True)
     for sig, ms in sorted(lm["agg"].items(), key=lambda kv: -math.prod(kv[0][0])):
         (C, P, D), K, w = sig
         b = bound(C * P * D * 4 + C * P * (8 if w else 4) + C * K * D * 4, C * P * D * (2 if w else 1))
@@ -1375,7 +1426,8 @@ def run_lm_phase(torch, np, ops, ref):
         print_row("segment_aggregate", f"LM path {sig}", t)
         (C, P, D), K, _, weighted = sig
         rows[f"lm_{C}_{P}_{D}_k{K}{'_w' if weighted else ''}"] = row_json(sig, t)
-    return dict(launches=lm["launches"], rows=rows, worst=worst, peak_gb=lm["peak_gb"])
+    return dict(launches=lm["launches"], sk_launches=lm["sk_launches"], rows=rows, worst=worst,
+                peak_gb=lm["peak_gb"])
 
 
 def lm_only(torch) -> int:
@@ -2742,7 +2794,7 @@ def ssm_phase(torch, np, ops, ref, sa, card) -> dict:
           f"{xl['peak_gb']:.2f} GB (serving included {xl['peak_all_gb']:.2f} GB)", flush=True)
     print(f"[ssm] 14b {card}: sketch per round {[round(x / 1e3, 3) for x in xl['sk_ms']]} s of device time "
           f"({SSM_C} x {xl['n_last']:,} last-group and head values; the clients share the "
-          f"{xl['n_last'] * 128 / 1e9:.1f}G Rademacher draws of a round)", flush=True)
+          f"{xl['n_last'] * 128 / 1e9:.1f}G signs of a round)", flush=True)
     pr = xl["probe"]
     print(f"[ssm] 14b {card}: one sLSTM layer at 1 x {SSM_S} tokens: {pr['fwd_ops']} aten ops on the card "
           f"in its forward ({pr['fwd_ops'] / SSM_S:.1f} a time step), forward {pr['secs']['fwd']:.4f} s, forward "
@@ -4805,6 +4857,113 @@ def kernel_timing_only(torch) -> int:
     return 0
 
 
+# granite-3-2b's last-block leaves that the fl_round cells' sketch projects
+# in one kernel call each (2 clients, d_sketch 128): (name, values)
+SKETCH_LEAVES = (("wq", 4_194_304), ("wk", 1_048_576), ("wv", 1_048_576), ("wo", 4_194_304),
+                 ("wg", 16_777_216), ("wu", 16_777_216), ("wd", 16_777_216))
+SKETCH_R, SKETCH_D = 2, 128
+# ALU-pipe instructions a sign in the sketch kernel's loop, read from the
+# SASS of ``project_kernel<2, false>`` (``cuobjdump -sass`` of the built
+# library: 155 instructions for 2 signs, 101 of them SHF, LOP3, IADD3,
+# VIADD and ISETP; the rest on the FMA pipe)
+SKETCH_ALU_PER_SIGN = 50.5
+
+
+def sketch_alu_bound_ms(torch, signs: float) -> float:
+    """The sketch kernel's bound in ms: ``SKETCH_ALU_PER_SIGN`` instructions
+    a sign over every SM's 64 int32 lanes at the card's top SM clock."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         stdout=subprocess.PIPE, text=True, timeout=60).stdout.split()[0]
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 64
+    return signs * SKETCH_ALU_PER_SIGN / (lanes * float(mhz) * 1e6) * 1e3
+
+
+def sketch_leaves(torch, ops, ref, sp) -> dict:
+    """The sketch kernel at granite-3-2b's last-block leaves (R 2, d 128,
+    each read in place as the last-block slice of a (2, 2, n) leaf): each
+    leaf's device time (CUDA events over repeated eager calls), the plain
+    version's (two calls after one warm-up), the relative gap of a row
+    (at most 1e-6) and two launches bit-equal; the round's sums and ALU
+    bound. Returns the rows, the round and the leaves."""
+    from repro_torch.core import sketch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows, leaves = {}, {}
+    for i, (name, n) in enumerate(SKETCH_LEAVES):
+        leaf = torch.randn(SKETCH_R, 2, n, generator=g, device="cuda")
+        leaves[name] = leaf
+        flat, block = leaf[:, -1], sketch._block_size(n)
+        seed = 1234 * 7919 + i
+        kernel_ms = eager_ms(torch, lambda: ops.sketch_project(flat, block, SKETCH_D, seed), inner=5, reps=7)
+        got = ops.sketch_project(flat, block, SKETCH_D, seed)
+        same = torch.equal(got, ops.sketch_project(flat, block, SKETCH_D, seed))
+        want = ref.sketch_project(flat, block, SKETCH_D, seed)
+        torch.cuda.synchronize()
+        plain = []
+        for _ in range(2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            ref.sketch_project(flat, block, SKETCH_D, seed)
+            b.record()
+            b.synchronize()
+            plain.append(a.elapsed_time(b))
+        gap = (torch.linalg.vector_norm(got - want, dim=1) / torch.linalg.vector_norm(want, dim=1)).max().item()
+        rows[name] = {"n": n, "ms": kernel_ms, "plain_ms": statistics.median(plain),
+                      "bound_ms": sketch_alu_bound_ms(torch, n * SKETCH_D), "gap": gap,
+                      "bit_equal_twice": same, "chunk": sp.chunk_rows(n, block), "ctas": sp.partials(n, block)}
+        print(f"[sketch] {name} n={n}: kernel {kernel_ms:.4f} ms, plain {rows[name]['plain_ms']:.2f} ms, "
+              f"ALU bound {rows[name]['bound_ms']:.4f} ms, gap {gap:.3e}, two launches bit-equal {same}",
+              flush=True)
+        if gap > 1e-6 or not same:
+            raise AssertionError(f"sketch {name}: gap {gap:.3e}, bit-equal {same}")
+    total = {k: sum(r[k] for r in rows.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    total["gap"] = max(r["gap"] for r in rows.values())
+    print(f"[sketch] a round's seven leaves: kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.1f} ms, "
+          f"ALU bound {total['bound_ms']:.3f} ms ({100 * total['bound_ms'] / total['ms']:.1f}% of it reached)",
+          flush=True)
+    return {"rows": rows, "round": total, "leaves": leaves}
+
+
+def sketch_timing_only(torch) -> int:
+    """``--sketch-timing``: build, then ``sketch_leaves``; then the seven
+    leaves and granite's norm scales through ``GradientSketcher`` twice
+    under the program's spans: each call's ``kernels.sketch_project`` and
+    ``sketch.draw`` spans and launches. The rows as JSON."""
+    from repro_torch.core import sketch
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import sketch_project as sp
+    from repro_torch.utils import trace
+
+    so = build.build()
+    if build.build_log:
+        log = build.build_log
+        print(log[log.find("--- sketch_project.cu"):])
+    print(f"[build] {so}")
+    out = sketch_leaves(torch, ops, ref, sp)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    # the last-block sketch of the seven leaves and three norm scales (kept), twice
+    upd = {"backbone": dict(out["leaves"], ln1=torch.randn(SKETCH_R, 2, 2048, generator=g, device="cuda"),
+                            ln2=torch.randn(SKETCH_R, 2, 2048, generator=g, device="cuda")),
+           "final_norm": {"scale": torch.randn(SKETCH_R, 2048, generator=g, device="cuda")}}
+    sk = sketch.GradientSketcher(d_sketch=SKETCH_D, strategy="last_block_proj")
+    calls = []
+    for _ in range(2):
+        before = sp.launches
+        with trace.recording() as spans:
+            sk.batch(upd)
+            torch.cuda.synchronize()
+        names = [s.name for s in spans]
+        calls.append({"kernels.sketch_project": names.count("kernels.sketch_project"),
+                      "sketch.draw": names.count("sketch.draw"), "launches": sp.launches - before})
+    print(f"[sketch] GradientSketcher.batch, two calls: {calls}")
+    print(json.dumps({"src": SRC, "sketch_timing": {"leaves": out["rows"], "round": out["round"],
+                                                    "sketcher": calls}}))
+    print(smi())
+    print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                         stdout=subprocess.PIPE, text=True).stdout.strip())
+    return 0
+
+
 def decode_timing_only(torch) -> int:
     """``--decode-timing``: build, then phase 9 alone, and its rows as JSON
     (for timing two versions of the package in turns, ``--src``)."""
@@ -4842,6 +5001,8 @@ def main(argv) -> int:
         return decode_timing_only(torch)
     if "--kernel-timing" in argv:
         return kernel_timing_only(torch)
+    if "--sketch-timing" in argv:
+        return sketch_timing_only(torch)
     if "--lm-train" in argv:
         return lm_only(torch)
     if "--engine-modes" in argv:
@@ -4888,12 +5049,15 @@ def main(argv) -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.kernels import sketch_project as skp
     worst = check_kernels(torch, ops, ref, cs, sa)
     worst["decode_attention"] = check_decode(torch, ops, ref, da)
+    worst["sketch_project"] = check_sketch(torch, ops, ref, skp)
     print(f"[kernels] kernel vs plain max |err|: {worst} "
           f"(tolerances f32 2e-5, bf16 2e-2 cosine / 3e-2 decode; the segment kernel bit-equal to "
           f"the plain version on a CPU copy; "
-          f"decode bit-identical across launches)")
+          f"decode bit-identical across launches; sketch: the largest relative gap of a row, 1e-6, "
+          f"one-hot rows exact, two launches bit-identical)")
     result = {"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}
@@ -5043,10 +5207,27 @@ def main(argv) -> int:
                     "library_ms": t["library_ms"]}
     report.append(row)
 
+    # ------------------------------ phase 9b: the sketch at granite's leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    skt = sketch_leaves(torch, ops, ref, skp)
+    del skt["leaves"]
+    report.append({
+        "name": "sketch_project", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sketch_project.cu", "replaces": None,
+        "max_row_gap": max(worst["sketch_project"], skt["round"]["gap"]),
+        "ms": skt["round"]["ms"], "plain_ms": skt["round"]["plain_ms"], "bound_ms": skt["round"]["bound_ms"],
+        "bound_by": f"ALU instructions ({SKETCH_ALU_PER_SIGN} a sign, from the SASS)",
+        "shape": f"granite-3-2b's seven last-block leaves, R {SKETCH_R}, d {SKETCH_D}",
+        "leaves": skt["rows"],
+    })
+
     # ------------------------------------------------- phase 10: LM training
     lm = run_lm_phase(torch, np, ops, ref)
     if lm["launches"] <= 0:
         return fail("the LM path never launched the segment kernel")
+    skr = next(r for r in report if r["name"] == "sketch_project")
+    skr["launches"] = skr["lm_launches"] = lm["sk_launches"]
     seg = next(r for r in report if r["name"] == "segment_aggregate")
     seg["lm_launches"] = lm["launches"]
     seg["lm_rows"] = lm["rows"]

@@ -21,7 +21,10 @@ leaf i of the selection uses seed ``seed * 7919 + i``. Each matrix is drawn
 once per call and applied to all rows together; the matrices of a leaf are
 kept across calls only while they are small (``CACHE_FLOATS``): the MLP's
 head is, a transformer block's 60.8M values at d_sketch 128 (31 GB of
-matrices) are not.
+matrices) are not. A leaf too large to keep that lies on the card (or is a
+fake tensor) is projected in one kernel call (``kernels.ops.sketch_project``)
+that makes each sign in registers from its threefry counter, the same signs
+the blocks hold; on the CPU it is drawn block by block (``kernels.ref``).
 """
 from __future__ import annotations
 
@@ -30,8 +33,10 @@ import math
 from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
-
 from repro_torch import random as rnd
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.ref import leaf_projection
 from repro_torch.utils import spmd, trace
 from repro_torch.utils.tree import leaves_with_path, tree_map
 
@@ -53,31 +58,7 @@ def n_blocks(n: int) -> int:
 def projection_blocks(n: int, d_sketch: int, seed: int, device) -> Iterable[torch.Tensor]:
     """The (block, d_sketch) Rademacher matrices of a flat leaf of n values,
     drawn one at a time, each draw a ``sketch.draw`` span."""
-    block = _block_size(n)
-    key = rnd.key(seed, device=device)
-    for i in range(n_blocks(n)):
-        with trace.span("sketch.draw"):
-            r = rnd.rademacher(rnd.fold_in(key, i), (block, d_sketch))
-        yield r
-
-
-def leaf_projection(flat: torch.Tensor, blocks: Iterable[torch.Tensor]) -> torch.Tensor:
-    """Project rows of flat leaves (R, n) to (R, d_sketch): blocked, scaled
-    by 1/sqrt(n), summing block products in order like the JAX scan. The
-    last block is padded with zeros, as the JAX package pads the leaf. Each
-    block's product is a ``sketch.project`` span."""
-    R, n = flat.shape
-    out = None
-    lo = 0
-    for r in blocks:
-        with trace.span("sketch.project"):
-            part = flat[:, lo:lo + r.shape[0]].float()
-            if part.shape[1] < r.shape[0]:
-                part = torch.nn.functional.pad(part, (0, r.shape[0] - part.shape[1]))
-            prod = part @ r
-            out = prod if out is None else out + prod
-        lo += r.shape[0]
-    return out / math.sqrt(max(n, 1))
+    return kref.rademacher_blocks(n, _block_size(n), d_sketch, seed, device)
 
 
 ROW_CHUNK = 1 << 16  # rows of a split leaf's projection drawn at a time
@@ -136,14 +117,19 @@ class GradientSketcher:
             return picked
         raise ValueError(self.strategy)
 
-    def _matrices(self, n: int, i: int, dev) -> Iterable[torch.Tensor]:
+    def _project(self, flat: torch.Tensor, i: int) -> torch.Tensor:
+        """(R, d_sketch) projection of leaf i's rows (R, n): by its kept
+        matrices where they are small, else in one ``kops.sketch_project``
+        call (the kernel on the card, the blocks drawn one by one on the
+        CPU)."""
+        n = flat.shape[1]
         seed = self.seed * 7919 + i
         if n_blocks(n) * _block_size(n) * self.d_sketch > CACHE_FLOATS:
-            return projection_blocks(n, self.d_sketch, seed, dev)
-        ck = (n, i, str(dev))
+            return kops.sketch_project(flat, _block_size(n), self.d_sketch, seed)
+        ck = (n, i, str(flat.device))
         if ck not in self._blocks:
-            self._blocks[ck] = list(projection_blocks(n, self.d_sketch, seed, dev))
-        return self._blocks[ck]
+            self._blocks[ck] = list(projection_blocks(n, self.d_sketch, seed, flat.device))
+        return leaf_projection(flat, self._blocks[ck])
 
     def _tensor_norms(self, picked) -> torch.Tensor:
         """(R, d_sketch): each row's per-leaf norms written as the JAX
@@ -191,8 +177,7 @@ class GradientSketcher:
                     part = proj if part is None else part + proj
                     continue
             else:
-                flat = leaf.reshape(leaf.shape[0], -1)
-                proj = leaf_projection(flat, self._matrices(flat.shape[1], i, flat.device))
+                proj = self._project(leaf.reshape(leaf.shape[0], -1), i)
             acc = proj if acc is None else acc + proj
         if part is not None:
             part = spmd.replicate_partial(part)
@@ -219,8 +204,7 @@ class GradientSketcher:
         seed = self.seed * 7919 + i
         if not split:
             def fn(x):
-                flat = x.reshape(x.shape[0], -1)
-                return leaf_projection(flat, self._matrices(n, i, flat.device))
+                return self._project(x.reshape(x.shape[0], -1), i)
         else:
             blk = spmd.local_block(leaf)
             mine = rnd.Shard(blk.local_shape[1:], blk.offsets[1:])

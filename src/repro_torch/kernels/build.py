@@ -19,7 +19,7 @@ from pathlib import Path
 from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cosine_sim.cu", "segment_aggregate.cu", "decode_attention.cu")
+SOURCES = ("cosine_sim.cu", "segment_aggregate.cu", "decode_attention.cu", "sketch_project.cu")
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -107,6 +107,8 @@ def library() -> ctypes.CDLL:
         lib.auxo_segment_aggregate.restype = ci
         lib.auxo_decode_attention.argtypes = [vp] * 6 + [ci] * 5 + [cl] * 4 + [ci, ci, ci, vp]
         lib.auxo_decode_attention.restype = ci
+        lib.auxo_sketch_project.argtypes = [vp, ci, cl, ci, cl, ci, ci, ctypes.c_uint, ci, vp, cf, vp, vp]
+        lib.auxo_sketch_project.restype = ci
         lib.auxo_decode_blocks_per_sm.argtypes = [ci, ci, ci]
         lib.auxo_decode_blocks_per_sm.restype = ci
         _lib = lib

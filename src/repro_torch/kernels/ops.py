@@ -19,8 +19,9 @@ A DTensor (the SPMD step's clustering and aggregation) runs the segment
 sum on each card's local shards (``utils.spmd.local``): a split of the
 rows it sums over leaves a ``Partial`` result, a split of a column or of
 the leading cohort axis a split result, and ids or weights are gathered
-where the data is whole. The cosine and decode attention take no
-DTensor: no SPMD path calls them.
+where the data is whole. The cosine, decode attention and sketch
+projection take no DTensor: the SPMD paths call them on local tensors or
+not at all.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.kernels import cosine_sim as _cs
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_aggregate as _sa
+from repro_torch.kernels import sketch_project as _sp
 from repro_torch.utils import spmd, trace
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -120,6 +122,26 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length) 
     qk, kk, vk = q.to(dt).contiguous(), rows(k), rows(v)
     n = torch.as_tensor(length, device=q.device).to(torch.int32).broadcast_to((B,)).contiguous()
     return _da.decode_attention(qk, kk, vk, n).to(q.dtype)
+
+
+def sketch_project(flat: torch.Tensor, block: int, d_sketch: int, seed: int) -> torch.Tensor:
+    """flat: (R, n) rows of a leaf of n values -> (R, d_sketch) float32: the
+    gradient sketch's projection of the rows by the threefry Rademacher
+    blocks of ``block`` rows drawn from ``seed`` (``core.sketch``), scaled
+    by 1/sqrt(n). On the card the rows are read in place where each is
+    contiguous, and the call is a ``kernels.sketch_project`` span whose meta
+    holds the ``rows``, ``n``, ``d`` and the projection ``blocks``."""
+    if _route(flat) == "cpu":
+        return ref.sketch_project(flat, block, d_sketch, seed)
+    if flat.dtype not in _KERNEL_DTYPES:
+        flat = flat.float()
+    if flat.shape[1] > 1 and flat.stride(1) != 1:
+        flat = flat.contiguous()
+    if not trace.on():
+        return _sp.sketch_project(flat, block, d_sketch, seed)
+    R, n = flat.shape
+    with trace.span("kernels.sketch_project", rows=R, n=n, d=d_sketch, blocks=max(1, -(-n // block))):
+        return _sp.sketch_project(flat, block, d_sketch, seed)
 
 
 # ---------------------------------------------------------------------------

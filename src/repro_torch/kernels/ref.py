@@ -2,14 +2,18 @@
 
 ``kernels/ops.py`` sends CPU tensors here; the CUDA kernels are held
 against these on the card (``chip_smoke.py``). The cosine and segment
-versions accept an optional leading cohort axis.
+versions accept an optional leading cohort axis. The sketch's projection
+is the gradient sketch's own block-by-block path (``core.sketch``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Iterable, Iterator, Optional
 
 import torch
+
+from repro_torch import random as rnd
+from repro_torch.utils import trace
 
 
 def cosine_similarity(x: torch.Tensor, c: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -73,3 +77,40 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngs,bsnk->bngk", probs, v.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def rademacher_blocks(n: int, block: int, d_sketch: int, seed: int, device) -> Iterator[torch.Tensor]:
+    """The (block, d_sketch) Rademacher matrices of a flat leaf of n values:
+    block i from ``fold_in(key(seed), i)``, drawn one at a time, each draw a
+    ``sketch.draw`` span."""
+    key = rnd.key(seed, device=device)
+    for i in range(max(1, -(-n // block))):
+        with trace.span("sketch.draw"):
+            r = rnd.rademacher(rnd.fold_in(key, i), (block, d_sketch))
+        yield r
+
+
+def leaf_projection(flat: torch.Tensor, blocks: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Project rows of flat leaves (R, n) to (R, d_sketch): blocked, scaled
+    by 1/sqrt(n), summing block products in order like the JAX scan. The
+    last block is padded with zeros, as the JAX package pads the leaf. Each
+    block's product is a ``sketch.project`` span."""
+    R, n = flat.shape
+    out = None
+    lo = 0
+    for r in blocks:
+        with trace.span("sketch.project"):
+            part = flat[:, lo:lo + r.shape[0]].float()
+            if part.shape[1] < r.shape[0]:
+                part = torch.nn.functional.pad(part, (0, r.shape[0] - part.shape[1]))
+            prod = part @ r
+            out = prod if out is None else out + prod
+        lo += r.shape[0]
+    return out / math.sqrt(max(n, 1))
+
+
+def sketch_project(flat: torch.Tensor, block: int, d_sketch: int, seed: int) -> torch.Tensor:
+    """flat: (R, n) rows -> (R, d_sketch) float32: the rows projected by the
+    Rademacher blocks of ``block`` rows drawn from ``seed``, one block after
+    another, scaled by 1/sqrt(n)."""
+    return leaf_projection(flat, rademacher_blocks(flat.shape[1], block, d_sketch, seed, flat.device))

@@ -57,6 +57,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.core import sketch
+from repro_torch.kernels import sketch_project as sketch_kernel
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import init_fake_world, make_production_mesh
 from repro_torch.launch.specs import SDS, TRAIN_CLIENTS, effective_config, flat_batch_specs, input_specs
@@ -142,6 +143,28 @@ def _one_draw_per_leaf(counter: hlo.StepCounter):
         sketch.projection_blocks, sketch.row_blocks = orig, orig_rows
 
 
+@contextlib.contextmanager
+def _sketch_kernel_bytes(counter: hlo.StepCounter):
+    """A leaf that the sketch projects in one kernel call
+    (``kernels.sketch_project``) dispatches no aten op for it on a fake
+    tensor: the call's bytes (the rows read once, the partial sums written
+    and read back, the output) and its products' FLOPs (2 R n d, the signs'
+    hashing not counted) are added here."""
+    orig = sketch_kernel.sketch_project
+
+    def counted(flat, block, d, seed):
+        R, n = flat.shape
+        counter.bytes_accessed += sketch_kernel.call_bytes(R, n, block, d, flat.element_size())
+        counter.flops += 2 * R * n * d
+        return orig(flat, block, d, seed)
+
+    sketch_kernel.sketch_project = counted
+    try:
+        yield
+    finally:
+        sketch_kernel.sketch_project = orig
+
+
 def _placed(shape, dtype, placements, mesh, dev):
     """An uninitialized DTensor of ``shape`` on ``mesh`` (each card's shard
     allocated; a fake tensor under ``FakeTensorMode``)."""
@@ -220,7 +243,7 @@ def probe_step(cfg, kind: str, batch: Dict[str, Any], step_cfg: StepConfig, cent
             fn = lambda: make_serve_step(model, step_cfg)(params, st["cache"], inputs)  # noqa: E731
         counter = hlo.StepCounter()
         spmd_ctx = contextlib.nullcontext() if mesh is None else _implicit_replication()
-        with _one_draw_per_leaf(counter), spmd_ctx:
+        with _one_draw_per_leaf(counter), _sketch_kernel_bytes(counter), spmd_ctx:
             return hlo.count_step(fn, external, counter)
 
 

@@ -288,7 +288,7 @@ def rademacher_rows(k, block: int, rows: torch.Tensor, d: int, dtype=torch.float
     rows alone)."""
     kb1, kb2 = threefry2x32(k[..., 0], k[..., 1], 0, rows // block)  # fold_in, per row
     ctr = (rows % block)[:, None] * d + torch.arange(d, dtype=torch.int64, device=rows.device)
-    b1, b2 = threefry2x32(kb1[:, None], kb2[:, None], 0, ctr)
+    b1, b2 = threefry2x32(kb1[:, None], kb2[:, None], ctr >> 32, ctr & _M)
     return (1 - 2 * ((b1 ^ b2) >> 31)).to(dtype)
 
 
